@@ -1,0 +1,126 @@
+"""The port's pose-only Levenberg-Marquardt against the JAX package, on the
+same observation table: wall points seen by the half-resolution rig,
+measured with pixel noise and 10% gross outliers, started from a
+perturbed pose.
+
+The JAX package's while_loop stops a round at the first accepted step
+whose relative cost gain is under 1e-6; the port runs a fixed loop of
+masked updates that freezes the same way, so the iteration counts agree
+wherever the gain test is decided by the data:
+
+  - float64: identical inlier masks, inlier counts and iteration counts,
+    pose within 1e-12 (measured: 8e-17, both take 5 iterations on seeds
+    0-7);
+  - float32: identical inlier masks and counts, pose within 1e-4 in every
+    cayley and translation entry (measured at most 1.8e-6). The iteration
+    count is not compared: a 1e-6 relative gain is below the float32
+    rounding of a ~600-term cost sum, so near convergence each package's
+    stop is decided by its own summation order (measured on seeds 0-7:
+    10/12, 13/13, 17/20, 12/5, 10/9, 16/18, 12/14, 17/8 port/JAX).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multicol_slam_tpu.models import optimizer as jopt
+from multicol_slam_tpu.ops import rig as jrig
+from multicol_slam_tpu.utils import config_io as jcio
+from multicol_slam_tpu_torch.models import optimizer as topt
+from multicol_slam_tpu_torch.ops.camera import img_to_world, world_to_img
+from multicol_slam_tpu_torch.ops.geometry import cayley2hom, inv_se3
+from multicol_slam_tpu_torch.ops.rig import mt_mc
+from multicol_slam_tpu_torch.utils import config_io as tcio
+from multicol_slam_tpu_torch.utils import convert
+
+import _torchutil as U
+
+
+def _jax_rig(np_dtype):
+    full, _ = jcio.load_mcs(tcio.SYNTH_RIG_DIR, dtype=np_dtype)
+    return jrig.scale_rig(full, U.SCALE)
+
+
+def _problem(seed: int, K: int = 600):
+    rng = np.random.default_rng(seed)
+    rig = U.torch_rig()
+    C = rig.n_cams
+    mt_true = torch.tensor([0.02, -0.05, 0.01, 0.3, -0.1, 0.2], dtype=torch.float32)
+    cam = torch.from_numpy(rng.integers(0, C, K).astype(np.int32))
+    # pixels inside the image circle, lifted to 1.5-4 m along their rays
+    r = rng.uniform(0, 110, K)
+    a = rng.uniform(0, 2 * np.pi, K)
+    uv0 = torch.from_numpy(np.stack([188 + r * np.cos(a), 120 + r * np.sin(a)], -1)
+                           .astype(np.float32))
+    cams = rig.cams.index(cam.long())
+    ray = img_to_world(cams, uv0)
+    depth = torch.from_numpy(rng.uniform(1.5, 4.0, K).astype(np.float32))
+    M = mt_mc(cayley2hom(mt_true), rig.M_c)[cam.long()]           # cam -> world
+    Xc = ray * depth[:, None]
+    X = torch.einsum("kij,kj->ki", M[:, :3, :3], Xc) + M[:, :3, 3]
+    Tc = inv_se3(M)
+    uv = world_to_img(cams, torch.einsum("kij,kj->ki", Tc[:, :3, :3], X) + Tc[:, :3, 3])
+    lvl = rng.integers(0, 4, K)
+    noise = rng.normal(0, 0.7, (K, 2)) * (1.2 ** lvl)[:, None]
+    out = rng.random(K) < 0.1
+    noise[out] += rng.uniform(15, 30, (int(out.sum()), 2)) * rng.choice([-1, 1], (int(out.sum()), 2))
+    obs = topt.BAObservations(
+        uv=uv + torch.from_numpy(noise.astype(np.float32)),
+        kf=torch.zeros(K, dtype=torch.int32), cam=cam,
+        pt=torch.arange(K, dtype=torch.int32),
+        inv_sigma2=torch.from_numpy((1.2 ** (-2.0 * lvl)).astype(np.float32)),
+        valid=torch.from_numpy(rng.random(K) < 0.95))
+    mt0 = mt_true + torch.from_numpy(
+        np.r_[rng.normal(0, 0.01, 3), rng.normal(0, 0.03, 3)].astype(np.float32))
+    return obs, X, mt0, mt_true
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_pose_optimization_matches_jax(dtype, seed):
+    obs, X, mt0, mt_true = _problem(seed)
+    np_dt, t_dt = (np.float64, torch.float64) if dtype == "f64" else (np.float32, torch.float32)
+    obs = topt.BAObservations(*(t.to(t_dt) if t.is_floating_point() else t for t in obs))
+    X, mt0 = X.to(t_dt), mt0.to(t_dt)
+    jr = _jax_rig(np_dt)
+    mt, inl, n_in, it = topt.pose_optimization(convert.rig_from_numpy(jr), mt0, obs, X)
+    with jax.enable_x64(dtype == "f64"):
+        j_mt, j_inl, j_n, j_it = jopt.pose_optimization(
+            jax.tree.map(jnp.asarray, jr), U.to_jax(mt0),
+            jopt.BAObservations(*(U.to_jax(t) for t in obs)), U.to_jax(X))
+        assert j_mt.dtype == np_dt
+    np.testing.assert_array_equal(inl.numpy(), np.asarray(j_inl))
+    assert int(n_in) == int(j_n)
+    if dtype == "f64":
+        assert int(it) == int(j_it), (int(it), int(j_it))
+        np.testing.assert_allclose(mt.numpy(), np.asarray(j_mt), rtol=0, atol=1e-12)
+    else:
+        np.testing.assert_allclose(mt.numpy(), np.asarray(j_mt), rtol=0, atol=1e-4)
+    # and the solve is right: near the truth, the gross outliers rejected
+    assert float((mt.float() - mt_true).abs().max()) < 5e-3
+    assert int(n_in) > 0.8 * int(obs.valid.sum())
+
+
+def test_closed_form_jacobian_matches_autodiff():
+    """The written-out pose Jacobian against forward-mode autodiff of the
+    residual, the JAX package's way of getting it, in float64: within
+    1e-12 relative (measured 2.2e-15)."""
+    from torch.func import jacfwd
+
+    obs, X, mt0, _ = _problem(5, K=200)
+    rig = convert.rig_from_numpy(_jax_rig(np.float64))
+    cam = obs.cam.long()
+    Mc = cayley2hom(rig.M_c_min)[cam]
+    cams = rig.cams.index(cam)
+    X, mt0, uv = X.double(), mt0.double(), obs.uv.double()
+
+    def residuals(mt):
+        T = inv_se3(cayley2hom(mt) @ Mc)
+        return uv - world_to_img(cams, torch.einsum("kij,kj->ki", T[:, :3, :3], X)
+                                 + T[:, :3, 3])
+
+    want = jacfwd(residuals)(mt0)
+    got = topt.pose_jacobian(mt0, Mc, X, cams)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
