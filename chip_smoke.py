@@ -20,9 +20,24 @@ Phases, each fatal on failure:
      and 1 degree of ground truth, and the main path must launch the
      kernel twice per frame;
   5. the first frames of that run against the port's CPU path (the plain
-     Hamming-NN version) on the same frames and map.
+     Hamming-NN version) on the same frames and map;
+  6. the system from the first frame: MultiColSLAM.track at the default
+     SlamSettings on the same rig, fed 40 frames of
+     synthetic.bench_trajectory rendered on the card, with no ground-truth
+     map: bootstrap (mutual matching, 5-point RANSAC), the Tracker state
+     machine, keyframes mapped synchronously (triangulation, cross-camera
+     points, fuse, Schur local BA). It must initialize within 20 frames,
+     stay WORKING on >= 90% of the frames after that, create and map >= 3
+     keyframes, reach an ATE (Sim3-aligned) of at most 5 cm, and launch
+     the kernel at every call site of the system's path (initialization
+     and its mutual check, the previous-frame window search, motion-model
+     and local-map tracking, triangulation, cross-camera triangulation,
+     fuse); the kernel must equal its plain version exactly on each call
+     site's recorded inputs. Per-frame times by kind and per-pass mapping
+     times are printed beside the card's name and power limit.
 
-Prints the card line, a JSON line of the kernels, and last
+Prints the card line, a JSON line of the kernels (one entry for the
+WORKING-frame path and one per call site of the system's path), and last
 {"ok": true, "device": {...}}. Without a GPU it exits non-zero and prints
 no result.
 """
@@ -34,6 +49,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -42,6 +58,17 @@ B = 16                 # frames of the main run
 B_REF = 2              # frames checked against the CPU path
 MAX_T_ERR = 0.05       # m, the bar of tests/test_e2e_slice.py
 MAX_R_ERR = 1.0        # degrees
+SYS_FRAMES = 40        # frames of the system run (phase 6)
+SYS_INIT_BY = 20       # it must initialize within this many frames
+SYS_WORKING_FRAC = 0.9
+SYS_MIN_KFS = 3
+SYS_MAX_ATE = 0.05     # m, Sim3-aligned
+# the system path's kernel call sites: the function on the call stack
+# that names each one
+SITES = {"search_for_initialization": "init", "_track_previous_frame": "window_search",
+         "_motion_track_core": "motion", "_local_map_core": "local_map",
+         "triangulation_batch": "triangulation", "cross_camera_batch": "cross_camera",
+         "fuse_targets_batch": "fuse"}
 
 
 def fail(msg: str):
@@ -132,6 +159,123 @@ def run_chunk(extract, rig, frames, st, params, settings, tcfg):
         st["maxd"], st["cand_base"], st["pt_desc"], st["pt_mask"], params,
         th_motion=tcfg.motion_th, th_local=tcfg.local_map_th,
         n_levels=settings.n_levels, scale_factor=settings.scale_factor)
+
+
+def call_site() -> str:
+    """The system-path call site of the current Hamming-NN call."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_name in SITES:
+            return SITES[f.f_code.co_name]
+        f = f.f_back
+    fail("hamming_nn called from an unknown call site")
+
+
+def percentiles(xs):
+    return (f"median {statistics.median(xs):.3f} p90 {float(np.percentile(xs, 90)):.3f} "
+            f"(n={len(xs)})") if xs else "none"
+
+
+def system_phase(dev, knn, card):
+    """Phase 6: MultiColSLAM.track from the first frame. Returns the kernel
+    JSON entries of the system path's call sites."""
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.models.tracking import TrackState
+    from multicol_slam_tpu_torch.utils import config_io, synthetic
+    from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
+
+    rig, _ = config_io.load_mcs(config_io.SYNTH_RIG_DIR)
+    rig = rig.to(dev)
+    gt = synthetic.bench_trajectory(SYS_FRAMES)
+    render = synthetic.make_renderer(rig)
+    frames = torch.round(render(torch.tensor(gt, dtype=torch.float32, device=dev)))
+    frames = frames.to(torch.uint8)
+    slam = MultiColSLAM(rig=rig, enable_loop_closing=False)
+
+    # the main path, counted: every launch goes through the wrapper; the
+    # spy names its call site and keeps each site's first inputs
+    site_launches, site_args = Counter(), {}
+
+    def spy(*args):
+        site = call_site()
+        if site == "init" and site_launches["init"] > site_launches["init_mutual"]:
+            site = "init_mutual"           # the transposed second launch
+        site_launches[site] += 1
+        site_args.setdefault(site, args)
+        return knn.hamming_nn(*args)
+
+    kinds, times, init_frame = [], [], None
+    knn.hamming_nn.launches = 0
+    matcher.hamming_nn = spy
+    try:
+        for i in range(SYS_FRAMES):
+            was_working = slam.state == TrackState.WORKING
+            n_passes = len(slam.mapping_ms)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M = slam.track(frames[i], i / 25.0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if M is not None and init_frame is None:
+                init_frame = i
+            kinds.append("init" if not was_working else
+                         "keyframe" if len(slam.mapping_ms) > n_passes else "working")
+    finally:
+        matcher.hamming_nn = knn.hamming_nn
+    launches = knn.hamming_nn.launches
+    if sum(site_launches.values()) != launches:
+        fail(f"call-site launches {dict(site_launches)} do not add up to {launches}")
+
+    tr = slam.tracker
+    m = slam.map
+    print(f"system: init at frame {init_frame}, {m.n_keyframes()} keyframes "
+          f"({len(slam.mapping_ms)} mapping passes), {m.n_points()} points, "
+          f"frame paths {dict(Counter(tr.frame_path))}")
+    if init_frame is None or init_frame >= SYS_INIT_BY:
+        fail(f"the system did not initialize within {SYS_INIT_BY} frames")
+    after = SYS_FRAMES - init_frame - 1
+    n_work = len(tr.all_poses) - 1
+    if n_work < SYS_WORKING_FRAC * after:
+        fail(f"WORKING on {n_work} of the {after} frames after init")
+    if len(slam.mapping_ms) < SYS_MIN_KFS or m.n_keyframes() < SYS_MIN_KFS:
+        fail(f"{m.n_keyframes()} keyframes, {len(slam.mapping_ms)} mapped; "
+             f"want >= {SYS_MIN_KFS}")
+    poses = np.stack(tr.all_poses)
+    if not np.isfinite(poses).all():
+        fail("non-finite poses")
+    k = len(poses)
+    ate = ate_rmse(poses[:, :3, 3], gt[SYS_FRAMES - k:, :3, 3])
+    print(f"system ATE (Sim3-aligned, {k} frames) {ate:.5f} m")
+    if ate > SYS_MAX_ATE:
+        fail(f"ATE {ate:.4f} m above {SYS_MAX_ATE} m")
+    for kind in ("init", "working", "keyframe"):
+        xs = [t for t, kd in zip(times, kinds) if kd == kind]
+        print(f"system frame ms, {kind}: {percentiles(xs)} ({card})")
+    print(f"system mapping_ms per pass: "
+          f"{[round(x, 3) for x in slam.mapping_ms]} ({card})")
+    print(f"system hamming_nn launches {launches} by call site: {dict(site_launches)}")
+
+    entries = []
+    for site in ("init", "init_mutual", "window_search", "motion", "local_map",
+                 "triangulation", "cross_camera", "fuse"):
+        if not site_launches[site]:
+            fail(f"the kernel was not launched at call site {site}")
+        q, db, gate, q_mask, db_mask = site_args[site]
+        masks = () if q_mask is None else (q_mask, db_mask)
+        err = compare(knn, q, db, gate, masks)
+        ms = cuda_ms(lambda: knn.hamming_nn(*site_args[site]))
+        plain = cuda_ms(lambda: knn.hamming_nn_reference(*site_args[site]))
+        print(f"hamming_nn at {site}: q {tuple(q.shape)} db {tuple(db.shape)}, "
+              f"{site_launches[site]} launches: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms ({card})")
+        entries.append({
+            "name": f"hamming_nn@{site}", "route": "cuda",
+            "source": "multicol_slam_tpu_torch/csrc/hamming_nn.cu",
+            "replaces": "multicol_slam_tpu/ops/pallas/hamming_nn.py:146",
+            "launches": site_launches[site], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "shape": [list(q.shape), list(db.shape)]})
+    return entries
 
 
 def cayley_to_hom(mt):
@@ -287,6 +431,9 @@ def main() -> None:
         if t_d > 1e-3 or r_d > 0.05 or agree < 0.98 or abs(a - r) > 0.02 * r:
             fail(f"frame {b + 1}: the card's run disagrees with the CPU path")
 
+    # -- 6. the system from the first frame ---------------------------------
+    sys_entries = system_phase(dev, knn, card)
+
     fused, local = timing["motion"], timing["local_map"]
     print(json.dumps({"kernels": [{
         "name": "hamming_nn",
@@ -301,7 +448,7 @@ def main() -> None:
         "ms_motion": fused[0], "plain_ms_motion": fused[1],
         "ms_local_map": local[0], "plain_ms_local_map": local[1],
         "ms_masked": masked_times[0], "plain_ms_masked": masked_times[1],
-    }]}))
+    }] + sys_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

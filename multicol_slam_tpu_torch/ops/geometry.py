@@ -30,6 +30,17 @@ def cayley2rot(c: torch.Tensor) -> torch.Tensor:
     return R / scale[..., None, None]
 
 
+def cayley_rot_grads(c: torch.Tensor) -> torch.Tensor:
+    """dR/dc_m (..., 3, 3, 3), m first, of R = cayley2rot(c) for c (..., 3):
+    R = N / s with N = (1 - c.c) I + 2 c c^T + 2 [c]x and s = 1 + c.c."""
+    eye = torch.eye(3, dtype=c.dtype, device=c.device)
+    s = 1.0 + (c * c).sum(-1)
+    cm = c[..., :, None, None]                  # c_m, broadcast over (i, j)
+    dN = (-2.0 * cm * eye + 2.0 * eye[:, :, None] * c[..., None, None, :]
+          + 2.0 * c[..., None, :, None] * eye[:, None, :] + 2.0 * skew(eye))
+    return (dN - 2.0 * cm * cayley2rot(c)[..., None, :, :]) / s[..., None, None, None]
+
+
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
     """Closed-form 3x3 inverse via the adjugate, batched."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
@@ -84,6 +95,19 @@ def hom2cayley(M: torch.Tensor) -> torch.Tensor:
     return torch.cat([rot2cayley(M[..., :3, :3]), M[..., :3, 3]], -1)
 
 
+def skew(t: torch.Tensor) -> torch.Tensor:
+    """3-vector (..., 3) -> 3x3 skew matrix (misc.h Skew)."""
+    z = torch.zeros_like(t[..., 0])
+    return torch.stack(
+        [
+            torch.stack([z, -t[..., 2], t[..., 1]], -1),
+            torch.stack([t[..., 2], z, -t[..., 0]], -1),
+            torch.stack([-t[..., 1], t[..., 0], z], -1),
+        ],
+        -2,
+    )
+
+
 def inv_se3(M: torch.Tensor) -> torch.Tensor:
     """Analytic inverse of a 4x4 SE3 matrix (cConverter.h invMat)."""
     R = M[..., :3, :3]
@@ -100,3 +124,46 @@ def horner(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     for i in range(coeffs.shape[-1] - 2, -1, -1):
         res = res * x + coeffs[..., i]
     return res
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def triangulate_midpoint(t12: torch.Tensor, R12: torch.Tensor,
+                         v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """Midpoint triangulation of two bearing rays (misc.cpp:26-50): ray
+    ``v1`` from camera 1 at the origin, ``v2`` from camera 2 with pose
+    (R12, t12) in camera 1's frame. Returns the point in camera 1's
+    frame; batched over the leading dims of v1 / v2, with (R12, t12)
+    broadcasting against them."""
+    f2 = torch.einsum("...ij,...j->...i", R12, v2)
+    b0 = _dot(t12, v1)
+    b1 = _dot(t12, f2)
+    A00 = _dot(v1, v1)
+    A10 = _dot(v1, f2)
+    A11 = -_dot(f2, f2)
+    # A = [[A00, -A10], [A10, A11]]; lambda = A^-1 b (2x2 closed form)
+    det = A00 * A11 + A10 * A10
+    det = torch.where(det.abs() < 1e-30, torch.full_like(det, 1e-30), det)
+    l0 = (A11 * b0 + A10 * b1) / det
+    l1 = (-A10 * b0 + A00 * b1) / det
+    xm = l0[..., None] * v1
+    xn = t12 + l1[..., None] * f2
+    return (xm + xn) * 0.5
+
+
+def epipolar_distance_sq(ray1: torch.Tensor, ray2: torch.Tensor,
+                         E12: torch.Tensor) -> torch.Tensor:
+    """Squared Sampson-like epipolar distance on bearing rays,
+    (ray1^T E12 ray2)^2 / (|E12 ray2|^2 + |E12^T ray1|^2), with the JAX
+    package's consistent pairing (see its ``epipolar_distance_sq`` for
+    the reference's mixed-pose deviation). +inf where the denominator
+    vanishes."""
+    Ex2 = torch.einsum("...ij,...j->...i", E12, ray2)
+    Etx1 = torch.einsum("...ji,...j->...i", E12, ray1)
+    nom = _dot(ray1, Ex2)
+    den = _dot(Ex2, Ex2) + _dot(Etx1, Etx1)
+    pos = den > 0.0
+    return torch.where(pos, nom * nom / torch.where(pos, den, torch.ones_like(den)),
+                       torch.full_like(den, float("inf")))

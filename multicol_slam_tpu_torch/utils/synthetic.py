@@ -3,8 +3,10 @@ frame.
 
 Port of the plain-room parts of ``multicol_slam_tpu/utils/synthetic.py``:
 a procedurally textured cubic room (the same 64^3 value-noise lattice
-from the same numpy seed) seen through the rig along a smooth arc. Walls,
-fins, distractors and the place-texture layer are not ported.
+from the same numpy seed) seen through the rig along a smooth arc, a
+lateral path, or the benchmark sequence (a lateral opening, then the
+arc). Walls, fins, distractors and the place-texture layer are not
+ported.
 ``gt_bootstrap`` lifts a frame's keypoints to their wall points at the
 true pose, the map the WORKING frame tracks against when mapping is not
 in the loop.
@@ -118,6 +120,33 @@ def smooth_trajectory(n_frames: int, radius: float = 1.0,
         out[i, :3, 3] = t
         out[i, 3, 3] = 1.0
     return out
+
+
+def lateral_trajectory(n_frames: int, step: float = 0.05,
+                       yaw_rate: float = 0.004) -> np.ndarray:
+    """(n_frames, 4, 4) poses: constant lateral translation and a slow
+    yaw, the parallax-friendliest motion for monocular initialization."""
+    out = np.zeros((n_frames, 4, 4))
+    for i in range(n_frames):
+        ang = yaw_rate * i
+        c, s = np.cos(ang), np.sin(ang)
+        out[i, :3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        out[i, :3, 3] = [step * i, 0.004 * i, 0.002 * i]
+        out[i, 3, 3] = 1.0
+    return out
+
+
+def bench_trajectory(n_frames: int, radius: float = 0.8,
+                     opening: int = 12, step: float = 0.05) -> np.ndarray:
+    """Benchmark sequence: a lateral opening segment (sideways
+    translation, no rotation: parallax to bootstrap from) followed by the
+    :func:`smooth_trajectory` arc, continued from the opening's end pose,
+    as the reference's Lafida run starts after the operator's
+    initialization motion (Slam_Settings_indoor1.yaml:54-56)."""
+    lat = lateral_trajectory(opening, step=step, yaw_rate=0.0)
+    arc = smooth_trajectory(max(n_frames - opening + 1, 2), radius=radius)
+    tail = np.einsum("ij,njk->nik", lat[-1], arc[1:])
+    return np.concatenate([lat, tail])[:n_frames]
 
 
 def wall_points(rig: Rig, M_t: torch.Tensor, rays: torch.Tensor):

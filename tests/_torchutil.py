@@ -25,6 +25,13 @@ from multicol_slam_tpu_torch.utils import config_io as tcio
 from multicol_slam_tpu_torch.utils import convert
 from multicol_slam_tpu_torch.utils import synthetic as tsyn
 
+# The suite runs in several worker processes on one host, each with JAX's
+# thread pool beside torch's; torch's default of one thread per core then
+# oversubscribes the cores many times over (measured under six workers:
+# the port's tests took 526 s with torch's default and 144 s with two
+# threads, the system test's set-up 502 s and 110 s).
+torch.set_num_threads(2)
+
 SCALE = 0.5
 N_LEVELS = 4
 N_FEATURES = 300
@@ -121,3 +128,54 @@ def pose_error_hom(A, B):
 def f32():
     """The JAX package in float32 (the production dtype)."""
     return jax.enable_x64(False)
+
+
+# -- full width: the system-level tests (half width never bootstraps on
+# the in-repo rig: the initializer's n_good stays under its gate of 60) --
+
+@functools.lru_cache(maxsize=None)
+def full_jax_rig():
+    """The in-repo rig at its full 754x480 through the JAX loader."""
+    return jcio.load_mcs(tcio.SYNTH_RIG_DIR, dtype=np.float32)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def full_torch_rig():
+    return convert.rig_from_numpy(full_jax_rig())
+
+
+@functools.lru_cache(maxsize=None)
+def bench_frames(n: int):
+    """(ground truth (n, 4, 4), uint8 frames (n, C, 480, 754)) of the first
+    n frames of ``bench_trajectory(30)``, rendered by the port."""
+    gt = tsyn.bench_trajectory(30)[:n]
+    render = tsyn.make_renderer(full_torch_rig())
+    return gt, torch.round(render(torch.tensor(gt, dtype=torch.float32))).to(torch.uint8)
+
+
+class JaxMinimalSets:
+    """Stands in for the port's ``ransac.sample_minimal_sets``: returns the
+    minimal sets the JAX package draws, following the JAX Tracker's key
+    stream (PRNGKey(42), split once per initialization attempt, then once
+    per camera; the port's RANSAC samples camera by camera in order)."""
+
+    def __init__(self, n_cams: int = 3, seed: int = 42):
+        from multicol_slam_tpu.ops import ransac as jr
+
+        self.n_cams = n_cams
+        self.key = jax.random.PRNGKey(seed)
+        self.calls = 0
+        self.keys = None
+        self._draw = jax.jit(lambda k, w, n: jr.sample_minimal_sets(k, n, 5, w.shape[0], w),
+                             static_argnums=2)
+
+    def __call__(self, gen, n_hyps, sample_size, n_points, weights=None):
+        assert sample_size == 5 and weights is not None
+        c = self.calls % self.n_cams
+        if c == 0:
+            self.key, sub = jax.random.split(self.key)
+            self.keys = jax.random.split(sub, self.n_cams)
+        self.calls += 1
+        with jax.enable_x64(False):
+            idx = self._draw(self.keys[c], jnp.asarray(weights.cpu().numpy()), n_hyps)
+        return torch.from_numpy(np.asarray(idx).astype(np.int64))

@@ -56,3 +56,54 @@ def test_kernel_rejects_non_contiguous(dev):
     gate = torch.ones((1, 4, 3), dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         knn.hamming_nn(q, db, gate)
+
+
+@pytest.mark.parametrize("C,N,M", [(3, 800, 800), (15, 800, 800), (12, 256, 800),
+                                   (3, 2048, 800)])
+def test_kernel_matches_plain_at_the_systems_shapes(dev, C, N, M):
+    """Slots are K = 800 per camera in the full system: initialization and
+    window search (3, 800, 800), triangulation against 5 neighbours
+    (15, 800, 800), fuse into 4 targets (12, 256, 800), local map
+    (3, 2048, 800)."""
+    gen = torch.Generator(device=dev).manual_seed(C + N + M)
+    q, db = _words((C, N, 8), gen, dev), _words((C, M, 8), gen, dev)
+    n_copy = min(N, M) // 2
+    q[:, :n_copy] = db[:, :n_copy]
+    gate = torch.rand((C, N, M), generator=gen, device=dev) < 0.01
+    got = knn.hamming_nn(q, db, gate)
+    for a, b in zip(got, knn.hamming_nn_reference(q, db, gate)):
+        assert torch.equal(a, b)
+
+
+def _features(n, gen, dev):
+    from multicol_slam_tpu_torch.models.extractor import Features
+    C = 3
+    return Features(
+        xy=torch.rand((C, n, 2), generator=gen, device=dev) * 200,
+        level=torch.randint(0, 2, (C, n), generator=gen, device=dev, dtype=torch.int32),
+        angle=torch.zeros((C, n), device=dev), response=torch.ones((C, n), device=dev),
+        ray=torch.nn.functional.normalize(torch.randn((C, n, 3), generator=gen, device=dev), dim=-1),
+        desc=_words((C, n, 8), gen, dev),
+        desc_mask=torch.full((C, n, 8), -1, dtype=torch.int32, device=dev),
+        valid=torch.rand((C, n), generator=gen, device=dev) < 0.9)
+
+
+def test_mutual_search_launches_twice_and_matches_the_cpu(dev):
+    """search_for_initialization's mutual check is a second launch on the
+    transposed problem; on the card it must equal the CPU path."""
+    from multicol_slam_tpu_torch.models import matcher as tm
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f1 = _features(800, gen, dev)
+    # f2: a jittered copy of f1 with a quarter of the bits flipped
+    flip = _words(f1.desc.shape, gen, dev) & _words(f1.desc.shape, gen, dev)
+    flip &= _words(f1.desc.shape, gen, dev)
+    f2 = f1._replace(xy=f1.xy + torch.randn(f1.xy.shape, generator=gen, device=dev),
+                     desc=f1.desc ^ flip)
+    before = knn.hamming_nn.launches
+    got = tm.search_for_initialization(f1, f2, tm.MatchParams())
+    torch.cuda.synchronize()
+    assert knn.hamming_nn.launches == before + 2
+    cpu = lambda f: type(f)(*(t.cpu() for t in f))
+    want = tm.search_for_initialization(cpu(f1), cpu(f2), tm.MatchParams())
+    assert torch.equal(got.cpu(), want)
+    assert (want >= 0).sum() > 100

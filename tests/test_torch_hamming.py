@@ -226,3 +226,40 @@ def test_wrapper_rejects_bad_inputs(bad):
                 gate_dtype=(q, db, gate.to(torch.float32)))[bad]
     with pytest.raises((TypeError, ValueError)):
         knn.hamming_nn(*args)
+
+
+def test_mutual_nn_on_the_kernel_path_matches_jax():
+    """The matchers' mutual rule (``matcher._nn``: the kernel wrapper on
+    the transposed gate, then one winner per column) against the JAX
+    package's ``gated_nn_match(mutual=True)`` + ``resolve_duplicate_targets``
+    on the same distances. Descriptors are drawn near a few shared
+    patterns, so distances tie often; some rows and columns are fully
+    gated."""
+    from multicol_slam_tpu_torch.models import matcher as tm
+    rng = np.random.default_rng(6)
+    C, N, M = 3, 40, 56
+    pool = rng.integers(0, 2, (6, 256)).astype(np.uint8)
+
+    def draw(n):
+        bits = pool[rng.integers(0, len(pool), (C, n))].copy()
+        flip = rng.random(bits.shape) < 0.006
+        return bits ^ flip.astype(np.uint8)
+
+    qb, dbb = draw(N), draw(M)
+    gate = rng.random((C, N, M)) < 0.6
+    gate[:, :4] = False
+    gate[:, :, :6] = False
+    dist = (qb[:, :, None, :] != dbb[:, None, :, :]).sum(-1).astype(np.int32)
+    q, db = thm.pack_bits_u32(torch.from_numpy(qb)), thm.pack_bits_u32(torch.from_numpy(dbb))
+    ones = torch.full_like(q, -1), torch.full_like(db, -1)
+    got = tm._nn(q, ones[0], db, ones[1], torch.from_numpy(gate), tm.MatchParams(),
+                 max_dist=5, nn_ratio=0.95, mutual=True)
+    one_way = tm._nn(q, ones[0], db, ones[1], torch.from_numpy(gate), tm.MatchParams(),
+                     max_dist=5, nn_ratio=0.95)
+    with f32():
+        for c in range(C):
+            j_match, j_bd = jhm.gated_nn_match(jnp.asarray(dist[c]), jnp.asarray(gate[c]),
+                                               max_dist=5, nn_ratio=0.95, mutual=True)
+            want = jhm.resolve_duplicate_targets(j_match, j_bd, M)
+            np.testing.assert_array_equal(got[c].numpy(), np.asarray(want))
+    assert 0 < (got >= 0).sum() < (one_way >= 0).sum()

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it loads no JAX, and the Hamming-NN
+"""The port stands alone: importing it loads no JAX, the Hamming-NN
 wrapper takes its plain version for CPU tensors without counting a
-kernel launch."""
+kernel launch, and the system refuses the modes that are not ported yet
+instead of ignoring them."""
 
 import os
 import subprocess
@@ -22,14 +23,22 @@ SLICE_MODULES = [
     "multicol_slam_tpu_torch.ops.fast",
     "multicol_slam_tpu_torch.ops.brief",
     "multicol_slam_tpu_torch.ops.hamming",
+    "multicol_slam_tpu_torch.ops.ransac",
+    "multicol_slam_tpu_torch.ops.se3_np",
     "multicol_slam_tpu_torch.kernels.hamming_nn",
     "multicol_slam_tpu_torch.models.extractor",
     "multicol_slam_tpu_torch.models.matcher",
     "multicol_slam_tpu_torch.models.optimizer",
     "multicol_slam_tpu_torch.models.tracking",
+    "multicol_slam_tpu_torch.models.initializer",
+    "multicol_slam_tpu_torch.models.map",
+    "multicol_slam_tpu_torch.models.local_mapping",
+    "multicol_slam_tpu_torch.models.system",
     "multicol_slam_tpu_torch.utils.config_io",
     "multicol_slam_tpu_torch.utils.synthetic",
     "multicol_slam_tpu_torch.utils.convert",
+    "multicol_slam_tpu_torch.utils.timing",
+    "multicol_slam_tpu_torch.utils.trajectory",
 ]
 
 
@@ -70,3 +79,31 @@ def test_other_devices_raise_instead_of_falling_back():
     gate = torch.ones((1, 2, 3), dtype=torch.bool, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         knn.hamming_nn(q, db, gate)
+
+
+@pytest.fixture
+def small_rig():
+    from multicol_slam_tpu_torch.ops.rig import scale_rig
+    from multicol_slam_tpu_torch.utils import config_io
+    return scale_rig(config_io.load_mcs(config_io.SYNTH_RIG_DIR)[0], 0.25)
+
+
+@pytest.mark.parametrize("kwargs,what", [
+    (dict(), "loop closing"),
+    (dict(enable_loop_closing=False, async_mapping=True), "async_mapping"),
+    (dict(enable_loop_closing=False, vocabulary_path="voc.npz"), "vocabular"),
+])
+def test_system_refuses_unported_modes(small_rig, kwargs, what):
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    with pytest.raises(NotImplementedError, match=what):
+        MultiColSLAM(rig=small_rig, **kwargs)
+
+
+def test_unported_tracker_paths_raise(small_rig):
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    slam = MultiColSLAM(rig=small_rig, enable_loop_closing=False)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        slam.tracker._relocalize()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        slam.track_batch(None, [])
+    assert slam.state.name == "NO_IMAGES_YET"

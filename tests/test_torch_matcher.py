@@ -91,3 +91,116 @@ def test_match_local_map_matches_jax(masked):
             U.to_jax(vcos), jm.MatchParams(masked=masked), th=U.TH_LOCAL)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got >= 0).sum() > (100 if masked else 200)
+
+
+def _two_views():
+    """Frames 0 and 1 extracted by the port, their true poses, and the
+    per-camera essentials E12 between them (world-to-camera convention)."""
+    from multicol_slam_tpu_torch.ops import se3_np
+    gt, imgs = U.frames(2)
+    _, tx = U.extractors()
+    f0, f1 = tx(imgs[0]), tx(imgs[1])
+    Mc = U.torch_rig().M_c.double().numpy()
+    T = [np.stack([np.linalg.inv(g @ m) for m in Mc]) for g in gt[:2]]
+    E = se3_np.essential_from_poses(T[0], T[1]).astype(np.float32)
+    return gt, f0, f1, torch.from_numpy(E)
+
+
+@pytest.mark.parametrize("use_low_th", [False, True])
+def test_window_search_matches_jax(use_low_th):
+    _, f0, f1, _ = _two_views()
+    sel = torch.from_numpy(np.random.default_rng(1).random(f0.valid.shape) < 0.7)
+    got = tm.window_search(f0, f1, sel, tm.MatchParams(), window=200.0,
+                           nn_ratio=0.9, use_low_th=use_low_th)
+    with U.f32():
+        want = jm.window_search(U.jax_features(f0), U.jax_features(f1), U.to_jax(sel),
+                                jm.MatchParams(), window=200.0, nn_ratio=0.9,
+                                use_low_th=use_low_th)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got >= 0).sum() > 150
+
+
+def test_search_for_triangulation_matches_jax():
+    _, f0, f1, E = _two_views()
+    rng = np.random.default_rng(2)
+    free0 = torch.from_numpy(rng.random(f0.valid.shape) < 0.6)
+    free1 = torch.from_numpy(rng.random(f1.valid.shape) < 0.6)
+    got = tm.search_for_triangulation(f0, free0, f1, free1, E, tm.MatchParams())
+    with U.f32():
+        want = jm.search_for_triangulation(U.jax_features(f0), U.to_jax(free0),
+                                           U.jax_features(f1), U.to_jax(free1),
+                                           U.to_jax(E), jm.MatchParams())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got >= 0).sum() > 50
+
+
+@pytest.mark.parametrize("loose_desc", [False, True])
+def test_fuse_candidates_matches_jax(loose_desc):
+    gt, last, cur, st = _setup(False)
+    rig = U.torch_rig()
+    mt1 = hom2cayley(torch.tensor(gt[1], dtype=torch.float32))
+    uv, ok, lvl, _ = ttrk.frustum_check(rig, mt1, st["X"], st["normal"], st["mind"],
+                                        st["maxd"], n_levels=U.N_LEVELS,
+                                        scale_factor=U.SCALE_FACTOR)
+    ok = ok & st["cand_base"][None]
+    has = torch.from_numpy(np.random.default_rng(3).random(cur.valid.shape) < 0.3)
+    got = tm.fuse_candidates(cur, has, st["pt_desc"], st["pt_mask"], uv, ok, lvl,
+                             tm.MatchParams(), th=3.0, loose_desc=loose_desc)
+    with U.f32():
+        want = jm.fuse_candidates(U.jax_features(cur), U.to_jax(has),
+                                  U.to_jax_u32(st["pt_desc"]), U.to_jax_u32(st["pt_mask"]),
+                                  U.to_jax(uv), U.to_jax(ok), U.to_jax(lvl),
+                                  jm.MatchParams(), th=3.0, loose_desc=loose_desc)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got >= 0).sum() > 200
+
+
+def test_search_for_initialization_is_mutual_and_matches_jax():
+    _, f0, f1, _ = _two_views()
+    got = tm.search_for_initialization(f0, f1, tm.MatchParams())
+    with U.f32():
+        want = jm.search_for_initialization(U.jax_features(f0), U.jax_features(f1),
+                                            jm.MatchParams())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got >= 0).sum() > 50        # level 0 only, at half width
+    # mutual: each match is also the best row of its column
+    back = tm.search_for_initialization(f1, f0, tm.MatchParams())
+    c, r = np.nonzero(got.numpy() >= 0)
+    assert (back.numpy()[c, got.numpy()[c, r]] == r).mean() > 0.95
+
+
+def _pair_at_distance(d: int):
+    """One query and one candidate, level 0, same place, same ray, whose
+    descriptors differ in d bits."""
+    q = np.zeros(256, np.int8)
+    q[:d] = 1
+    pack = lambda bits: __import__(
+        "multicol_slam_tpu_torch.ops.hamming", fromlist=["x"]).pack_bits_u32(
+        torch.from_numpy(bits)[None, None])
+
+    def feats(bits):
+        return tm.Features(
+            xy=torch.full((1, 1, 2), 100.0), level=torch.zeros((1, 1), dtype=torch.int32),
+            angle=torch.zeros((1, 1)), response=torch.ones((1, 1)),
+            ray=torch.tensor([[[0.0, 0.0, 1.0]]]), desc=pack(bits),
+            desc_mask=torch.full((1, 1, 8), -1, dtype=torch.int32),
+            valid=torch.ones((1, 1), dtype=torch.bool))
+    return feats(np.zeros(256, np.int8)), feats(q)
+
+
+@pytest.mark.parametrize("d", [60, 80, 100])
+def test_th_low_modes_use_th_low(d):
+    """TH_LOW = 64 and TH_HIGH = 96 for 32-byte ORB: a pair at distance 80
+    passes the TH_HIGH window search and fails the TH_LOW searches (the
+    threshold used to be TH_HIGH everywhere)."""
+    p = tm.MatchParams()
+    a, b = _pair_at_distance(d)
+    yes = torch.ones((1, 1), dtype=torch.bool)
+    # identical rays satisfy any E = [t]x R: the epipolar gate passes
+    E = torch.tensor([[[0.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]]])
+    init = int(tm.search_for_initialization(a, b, p)[0, 0])
+    tri = int(tm.search_for_triangulation(a, yes, b, yes, E, p)[0, 0])
+    win_low = int(tm.window_search(a, b, yes, p, use_low_th=True)[0, 0])
+    win_high = int(tm.window_search(a, b, yes, p)[0, 0])
+    assert (init, tri, win_low) == ((0, 0, 0) if d <= p.th_low else (-1, -1, -1))
+    assert win_high == (0 if d <= p.th_high else -1)
