@@ -8,43 +8,58 @@ Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the Hamming-NN kernel from multicol_slam_tpu_torch/csrc with
      nvcc, timed;
-  3. the kernel against its plain PyTorch version on the card, both
-     variants, at the WORKING frame's shapes and ragged ones, with fully
-     gated rows and duplicate minima: exact equality; median times from
-     CUDA events;
+  3. both entries of the kernel against their plain PyTorch versions on
+     the card, both variants: the dense-gate entry (hamming_nn) at the
+     WORKING frame's shapes and ragged ones, with fully gated rows and
+     duplicate minima; the window-gated entry (hamming_nn_radius) on the
+     adversarial cases of tests/_radius_cases.py (points exactly on the
+     radius, both edges of the level window, fully gated rows, duplicate
+     minima, queries shared by every camera, 4, 8 and 16 words). Exact
+     equality;
   4. the WORKING frame (extraction, motion-model tracking, local-map
      tracking) at the default SlamSettings: the in-repo 3-camera rig at
      754x480, 8 levels x 1.2, 400 features per camera, against a map lifted
      from frame 0 at the true pose, over 16 frames rendered on the card.
      Every frame must keep >= 15 local-map inliers and stay within 5 cm
      and 1 degree of ground truth, and the main path must launch the
-     kernel twice per frame;
+     window-gated entry twice per frame and the dense-gate entry never;
   5. the first frames of that run against the port's CPU path (the plain
-     Hamming-NN version) on the same frames and map;
-  6. the system from the first frame: MultiColSLAM.track at the default
-     SlamSettings on the same rig, fed 40 frames of
-     synthetic.bench_trajectory rendered on the card, with no ground-truth
-     map: bootstrap (mutual matching, 5-point RANSAC), the Tracker state
-     machine, keyframes mapped synchronously (triangulation, cross-camera
-     points, fuse, Schur local BA). It must initialize within 20 frames,
-     stay WORKING on >= 90% of the frames after that, create and map >= 3
-     keyframes, reach an ATE (Sim3-aligned) of at most 5 cm, and launch
-     the kernel at every call site of the system's path (initialization
-     and its mutual check, the previous-frame window search, motion-model
-     and local-map tracking, triangulation, cross-camera triangulation,
-     fuse); the kernel must equal its plain version exactly on each call
-     site's recorded inputs. Per-frame times by kind and per-pass mapping
-     times are printed beside the card's name and power limit.
+     Hamming-NN versions) on the same frames and map;
+  6. the system from the first frame: MultiColSLAM(calib_dir=...) with no
+     device named, so on the card, at the default SlamSettings on the same
+     rig, fed 40 frames of synthetic.bench_trajectory rendered on the card,
+     with no ground-truth map: bootstrap (mutual matching, 5-point
+     RANSAC), the Tracker state machine, keyframes mapped synchronously
+     (triangulation, cross-camera points, fuse, Schur local BA). It must
+     initialize within 20 frames, stay WORKING on >= 90% of the frames
+     after that, create and map >= 3 keyframes, reach an ATE (Sim3-aligned)
+     of at most 5 cm, and launch the kernel at every call site of the
+     system's path: the window-gated entry at initialization and its
+     mutual check, the previous-frame window search, motion-model and
+     local-map tracking and fuse; the dense-gate entry at triangulation
+     and cross-camera triangulation. Each site's entry must equal its plain
+     version exactly on the site's recorded inputs. Per-frame times by kind
+     and per-pass mapping times are printed beside the card's name and
+     power limit.
 
-Prints the card line, a JSON line of the kernels (one entry for the
-WORKING-frame path and one per call site of the system's path), and last
-{"ok": true, "device": {...}}. Without a GPU it exits non-zero and prints
-no result.
+For each call site (phases 4 and 6) the script times, on the card: the
+entry's device time per launch (CUDA-graph replay, so no host enqueue in
+it), one call between two events as earlier versions timed (host enqueue
+included), the plain version, and at the window-gated sites the path the
+site ran before the in-kernel gate (the torch gate build plus the
+dense-gate entry). It computes each site's bound from the inputs (bytes
+over 3.35 TB/s, float operations over 67 TFLOP/s, popcounts over 16 per
+clock per SM at 1.98 GHz on 132 SMs) and its gate density.
+
+Prints the card line, a JSON line of the kernels (one entry per call
+site), and last {"ok": true, "device": {...}}. Without a GPU it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -63,12 +78,23 @@ SYS_INIT_BY = 20       # it must initialize within this many frames
 SYS_WORKING_FRAC = 0.9
 SYS_MIN_KFS = 3
 SYS_MAX_ATE = 0.05     # m, Sim3-aligned
-# the system path's kernel call sites: the function on the call stack
-# that names each one
+# the kernel's call sites: the function on the call stack that names each
 SITES = {"search_for_initialization": "init", "_track_previous_frame": "window_search",
          "_motion_track_core": "motion", "_local_map_core": "local_map",
          "triangulation_batch": "triangulation", "cross_camera_batch": "cross_camera",
          "fuse_targets_batch": "fuse"}
+SYS_SITES = {"init": "radius", "init_mutual": "radius", "window_search": "radius",
+             "motion": "radius", "local_map": "radius", "triangulation": "dense",
+             "cross_camera": "dense", "fuse": "radius"}
+ENTRY = {"radius": "hamming_nn_radius", "dense": "hamming_nn"}
+SOURCE = "multicol_slam_tpu_torch/csrc/hamming_nn.cu"
+REPLACES = "multicol_slam_tpu/ops/pallas/hamming_nn.py:146"
+REPLACES_MASKED = "multicol_slam_tpu/ops/pallas/hamming_nn.py:206"
+LIBRARY = ("none: torch has no popcount, and no call reduces to a gated best, "
+           "second-best and argmin")
+HBM_BYTES_S = 3.35e12          # H100 SXM device memory
+F32_OPS_S = 67e12              # H100 SXM float32 outside the tensor cores
+POPC_S = 16 * 132 * 1.98e9     # popcounts per clock per SM x SMs x boost clock
 
 
 def fail(msg: str):
@@ -76,7 +102,8 @@ def fail(msg: str):
 
 
 def cuda_ms(fn, reps: int = 30, warm: int = 3) -> float:
-    """Median device time of fn() over reps launches, from CUDA events."""
+    """Median time of one fn() call between two CUDA events, host enqueue
+    included (how the kernel's first version was timed)."""
     for _ in range(warm):
         fn()
     times = []
@@ -88,6 +115,33 @@ def cuda_ms(fn, reps: int = 30, warm: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, rounds: int = 7) -> float:
+    """Median device time of one fn(): reps calls captured in one CUDA
+    graph, the graph replayed between two events, divided by reps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -109,16 +163,152 @@ def random_case(C, N, M, dev, gen):
     return q, db, gate, words(C, N, 8), words(C, M, 8)
 
 
-def compare(knn, q, db, gate, masks=()) -> int:
-    """Kernel against plain on the same tensors; returns max |diff| (0)."""
-    got = knn.hamming_nn(q, db, gate, *masks)
-    want = knn.hamming_nn_reference(q, db, gate, *masks)
+def compare(knn, kind, args) -> int:
+    """An entry against its plain version on the same tensors; returns max
+    |diff| (0)."""
+    got = getattr(knn, ENTRY[kind])(*args)
+    want = getattr(knn, ENTRY[kind] + "_reference")(*args)
     torch.cuda.synchronize()
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
     if err:
-        fail(f"hamming_nn differs from its plain version at {tuple(q.shape)} x "
-             f"{tuple(db.shape)} masked={bool(masks)}: max |diff| {err}")
+        fail(f"{ENTRY[kind]} differs from its plain version at {tuple(args[0].shape)} x "
+             f"{tuple(args[1].shape)} ({len(args)} arguments): max |diff| {err}")
     return err
+
+
+def radius_cases():
+    """tests/_radius_cases.py: entry A's adversarial inputs, made with
+    numpy from a seed."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import _radius_cases
+    return _radius_cases
+
+
+def radius_args(case, dev, masked):
+    """A case of tests/_radius_cases.py as entry A's arguments on dev."""
+    words = lambda a: torch.from_numpy(a.view(np.int32).copy()).to(dev)
+    args = [words(case["q"]), words(case["db"])] + [
+        torch.from_numpy(case[k]).to(dev) for k in ("q_uv", "q_r2", "q_lvl_lo", "q_lvl_hi",
+                                                 "q_ok", "db_xy", "db_lvl", "db_ok")]
+    return args + ([words(case["q_mask"]), words(case["db_mask"])] if masked else [])
+
+
+def split(kind, args):
+    """(q, db, gate fields or gate, masks) of an entry's arguments."""
+    n = 10 if kind == "radius" else 3
+    return args[0], args[1], args[2:n], args[n:]
+
+
+def gate_counts(knn, kind, args):
+    """(pairs the gate allows, pairs whose distance test runs, all pairs)."""
+    _, _, fields, _ = split(kind, args)
+    if kind == "dense":
+        gate = fields[0].bool()
+        return int(gate.sum()), 0, gate.numel()
+    q_uv, q_r2, lo, hi, q_ok, db_xy, db_lvl, db_ok = fields
+    lvl = db_lvl[:, None, :]
+    cand = (lvl >= lo[..., None]) & (lvl <= hi[..., None]) & q_ok[..., None] & db_ok[:, None]
+    gate = knn.radius_gate(*fields)
+    return int(gate.sum()), int(cand.sum()), gate.numel()
+
+
+def bound(knn, kind, args):
+    """(bound ms, 'bytes' or 'operations', gate density): the least time
+    for this call's work on an H100 SXM. Bytes: every input read once and
+    the outputs written once. Operations: popcounts for the pairs the gate
+    allows, and for entry A the five float operations of the distance test
+    for the pairs that pass the validity and level tests."""
+    q, db, fields, masks = split(kind, args)
+    C, N = db.shape[0], q.shape[1]
+    n_gate, n_cand, n_all = gate_counts(knn, kind, args)
+    nbytes = sum(t.numel() * t.element_size() for t in [q, db, *fields, *masks]) + 12 * C * N
+    popc = n_gate * q.shape[2] * (2 if masks else 1)
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(popc / POPC_S, 5 * n_cand / F32_OPS_S)
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            n_gate / n_all)
+
+
+def previous_path(knn, args):
+    """What a window-gated site ran before the in-kernel gate: the dense
+    gate built by the torch expressions, queries copied to every camera,
+    then the dense-gate entry."""
+    q, db, fields, masks = split("radius", args)
+    wide = lambda t: t.expand((db.shape[0],) + tuple(t.shape[1:])).contiguous()
+    masks = (wide(masks[0]), masks[1]) if masks else ()
+    return knn.hamming_nn(wide(q), db, knn.radius_gate(*fields).contiguous(), *masks)
+
+
+def site_entry(knn, site, kind, args, launches, card):
+    """Compare, time and bound one call site's recorded inputs; returns
+    its entry of the kernels line."""
+    entry = getattr(knn, ENTRY[kind])
+    plain = getattr(knn, ENTRY[kind] + "_reference")
+    err = compare(knn, kind, args)
+    ms = device_ms(lambda: entry(*args))
+    call = cuda_ms(lambda: entry(*args))
+    plain_ms = device_ms(lambda: plain(*args))
+    prev = device_ms(lambda: previous_path(knn, args)) if kind == "radius" else None
+    bound_ms, bound_by, density = bound(knn, kind, args)
+    q, db, _, masks = split(kind, args)
+    print(f"{ENTRY[kind]} at {site}: q {tuple(q.shape)} db {tuple(db.shape)}, {launches} "
+          f"launches, gate density {density:.6f}: device {ms * 1e3:.2f} us a launch "
+          f"(bound {bound_ms * 1e3:.3f} us, {bound_by}), one call {call * 1e3:.2f} us, plain "
+          f"{plain_ms * 1e3:.2f} us" + (f", previous path {prev * 1e3:.2f} us" if prev else "")
+          + f" ({card})")
+    if prev is not None and not ms < prev:
+        print(f"note: at {site} the entry ({ms:.5f} ms) is not below the previous path "
+              f"({prev:.5f} ms)")
+    return {"name": f"{ENTRY[kind]}@{site}", "entry": "A" if kind == "radius" else "B",
+            "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES_MASKED if masks else REPLACES,
+            "launches": launches, "max_abs_err": err, "ms": ms, "call_ms": call,
+            "plain_ms": plain_ms, "prev_path_ms": prev, "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3, "bound_by": bound_by, "library_ms": None,
+            "library": LIBRARY, "gate_density": density,
+            "shape": [list(q.shape), list(db.shape)]}
+
+
+class SiteSpy:
+    """Stands in for the matcher module's two kernel entries: names each
+    launch's call site, counts it and keeps each site's first inputs; the
+    wrappers still launch and count."""
+
+    def __init__(self, knn, matcher):
+        self.knn, self.matcher = knn, matcher
+        self.launches, self.args = Counter(), {}
+
+    def _call(self, kind, args):
+        site = call_site()
+        if site == "init" and self.launches["init"] > self.launches["init_mutual"]:
+            site = "init_mutual"           # the swapped second launch
+        self.launches[site] += 1
+        self.args.setdefault(site, (kind, args))
+        return getattr(self.knn, ENTRY[kind])(*args)
+
+    def __enter__(self):
+        self.matcher.hamming_nn = lambda *a: self._call("dense", a)
+        self.matcher.hamming_nn_radius = lambda *a: self._call("radius", a)
+        return self
+
+    def __exit__(self, *exc):
+        self.matcher.hamming_nn = self.knn.hamming_nn
+        self.matcher.hamming_nn_radius = self.knn.hamming_nn_radius
+
+
+def call_site() -> str:
+    """The call site of the current Hamming-NN call."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_name in SITES:
+            return SITES[f.f_code.co_name]
+        f = f.f_back
+    fail("a Hamming-NN entry was called from an unknown call site")
+
+
+def reset_launches(knn):
+    knn.hamming_nn.launches = 0
+    knn.hamming_nn_radius.launches = 0
 
 
 def make_slice(settings, rig):
@@ -161,16 +351,6 @@ def run_chunk(extract, rig, frames, st, params, settings, tcfg):
         n_levels=settings.n_levels, scale_factor=settings.scale_factor)
 
 
-def call_site() -> str:
-    """The system-path call site of the current Hamming-NN call."""
-    f = sys._getframe(2)
-    while f is not None:
-        if f.f_code.co_name in SITES:
-            return SITES[f.f_code.co_name]
-        f = f.f_back
-    fail("hamming_nn called from an unknown call site")
-
-
 def percentiles(xs):
     return (f"median {statistics.median(xs):.3f} p90 {float(np.percentile(xs, 90)):.3f} "
             f"(n={len(xs)})") if xs else "none"
@@ -185,30 +365,19 @@ def system_phase(dev, knn, card):
     from multicol_slam_tpu_torch.utils import config_io, synthetic
     from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
 
-    rig, _ = config_io.load_mcs(config_io.SYNTH_RIG_DIR)
-    rig = rig.to(dev)
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, enable_loop_closing=False)
+    if slam.rig.M_c.device != dev:
+        fail(f"MultiColSLAM with no device runs on {slam.rig.M_c.device}, not {dev}")
     gt = synthetic.bench_trajectory(SYS_FRAMES)
-    render = synthetic.make_renderer(rig)
+    render = synthetic.make_renderer(slam.rig)
     frames = torch.round(render(torch.tensor(gt, dtype=torch.float32, device=dev)))
     frames = frames.to(torch.uint8)
-    slam = MultiColSLAM(rig=rig, enable_loop_closing=False)
 
-    # the main path, counted: every launch goes through the wrapper; the
+    # the main path, counted: every launch goes through the wrappers; the
     # spy names its call site and keeps each site's first inputs
-    site_launches, site_args = Counter(), {}
-
-    def spy(*args):
-        site = call_site()
-        if site == "init" and site_launches["init"] > site_launches["init_mutual"]:
-            site = "init_mutual"           # the transposed second launch
-        site_launches[site] += 1
-        site_args.setdefault(site, args)
-        return knn.hamming_nn(*args)
-
     kinds, times, init_frame = [], [], None
-    knn.hamming_nn.launches = 0
-    matcher.hamming_nn = spy
-    try:
+    reset_launches(knn)
+    with SiteSpy(knn, matcher) as spy:
         for i in range(SYS_FRAMES):
             was_working = slam.state == TrackState.WORKING
             n_passes = len(slam.mapping_ms)
@@ -221,11 +390,12 @@ def system_phase(dev, knn, card):
                 init_frame = i
             kinds.append("init" if not was_working else
                          "keyframe" if len(slam.mapping_ms) > n_passes else "working")
-    finally:
-        matcher.hamming_nn = knn.hamming_nn
-    launches = knn.hamming_nn.launches
-    if sum(site_launches.values()) != launches:
-        fail(f"call-site launches {dict(site_launches)} do not add up to {launches}")
+    launches = {k: getattr(knn, ENTRY[k]).launches for k in ENTRY}
+    for kind in ENTRY:
+        by_site = sum(n for s, n in spy.launches.items() if SYS_SITES.get(s) == kind)
+        if by_site != launches[kind]:
+            fail(f"call-site launches {dict(spy.launches)} do not add up to "
+                 f"{ENTRY[kind]}'s {launches[kind]}")
 
     tr = slam.tracker
     m = slam.map
@@ -254,27 +424,16 @@ def system_phase(dev, knn, card):
         print(f"system frame ms, {kind}: {percentiles(xs)} ({card})")
     print(f"system mapping_ms per pass: "
           f"{[round(x, 3) for x in slam.mapping_ms]} ({card})")
-    print(f"system hamming_nn launches {launches} by call site: {dict(site_launches)}")
+    print(f"system launches {launches} by call site: {dict(spy.launches)}")
 
     entries = []
-    for site in ("init", "init_mutual", "window_search", "motion", "local_map",
-                 "triangulation", "cross_camera", "fuse"):
-        if not site_launches[site]:
+    for site, kind in SYS_SITES.items():
+        if not spy.launches[site]:
             fail(f"the kernel was not launched at call site {site}")
-        q, db, gate, q_mask, db_mask = site_args[site]
-        masks = () if q_mask is None else (q_mask, db_mask)
-        err = compare(knn, q, db, gate, masks)
-        ms = cuda_ms(lambda: knn.hamming_nn(*site_args[site]))
-        plain = cuda_ms(lambda: knn.hamming_nn_reference(*site_args[site]))
-        print(f"hamming_nn at {site}: q {tuple(q.shape)} db {tuple(db.shape)}, "
-              f"{site_launches[site]} launches: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms ({card})")
-        entries.append({
-            "name": f"hamming_nn@{site}", "route": "cuda",
-            "source": "multicol_slam_tpu_torch/csrc/hamming_nn.cu",
-            "replaces": "multicol_slam_tpu/ops/pallas/hamming_nn.py:146",
-            "launches": site_launches[site], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "shape": [list(q.shape), list(db.shape)]})
+        got_kind, args = spy.args[site]
+        if got_kind != kind:
+            fail(f"call site {site} used {ENTRY[got_kind]}, want {ENTRY[kind]}")
+        entries.append(site_entry(knn, site, kind, args, spy.launches[site], card))
     return entries
 
 
@@ -313,19 +472,20 @@ def main() -> None:
     knn.load_library()
     print(f"kernel build s {time.perf_counter() - t0:.3f} ({card})")
 
-    # -- 3. kernel against plain on random inputs ---------------------------
+    # -- 3. both entries against plain: random and adversarial inputs -------
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = 0
-    masked_times = None
     for C, N, M in [(3, 400, 400), (3, 2048, 400), (2, 1, 1), (2, 1, 257),
                     (2, 129, 1), (2, 129, 257)]:
         q, db, gate, qm, dbm = random_case(C, N, M, dev, gen)
         for masks in [(), (qm, dbm)]:
-            max_err = max(max_err, compare(knn, q, db, gate, masks))
-        if (C, N, M) == (3, 2048, 400):
-            masked_times = (cuda_ms(lambda: knn.hamming_nn(q, db, gate, qm, dbm)),
-                            cuda_ms(lambda: knn.hamming_nn_reference(q, db, gate, qm, dbm)))
+            compare(knn, "dense", (q, db, gate) + masks)
         print(f"hamming_nn == plain at C={C} N={N} M={M}, both variants")
+    rc = radius_cases()
+    for name in rc.CASES:
+        case = rc.radius_case(name, seed=len(name))
+        for masked in (False, True):
+            compare(knn, "radius", radius_args(case, dev, masked))
+        print(f"hamming_nn_radius == plain on case {name}, both variants")
 
     # -- 4. the WORKING frame at the default configuration ------------------
     settings = config_io.SlamSettings()
@@ -344,42 +504,30 @@ def main() -> None:
     print(f"slice: {C} cameras {tuple(frames.shape[-2:])}, {settings.n_levels} levels, "
           f"K={K} slots/camera, map P={st['P']} padded to {st['X'].shape[0]}")
 
-    # warm-up frame, recording the wrapper's real inputs for phase 3b
-    seen = []
-
-    def spy(*args):
-        seen.append(args)
-        return knn.hamming_nn(*args)
-
-    matcher.hamming_nn = spy
-    try:
-        run_chunk(extract, rig, frames[1:2], st, params, settings, tcfg)
-    finally:
-        matcher.hamming_nn = knn.hamming_nn
+    # warm-up frame
+    run_chunk(extract, rig, frames[1:2], st, params, settings, tcfg)
     torch.cuda.synchronize()
-    timing = {}
-    for name, args in zip(("motion", "local_map"), seen):
-        q, db, gate, q_mask, db_mask = args
-        masks = () if q_mask is None else (q_mask, db_mask)
-        max_err = max(max_err, compare(knn, q, db, gate, masks))
-        timing[name] = (cuda_ms(lambda: knn.hamming_nn(*args)),
-                        cuda_ms(lambda: knn.hamming_nn_reference(*args)))
-        print(f"hamming_nn on the main path's {name} inputs: q {tuple(q.shape)} "
-              f"db {tuple(db.shape)} gate density {gate.float().mean().item():.5f}: "
-              f"kernel {timing[name][0]:.4f} ms, plain {timing[name][1]:.4f} ms ({card})")
-    print(f"hamming_nn masked at (3, 2048, 400) random: kernel {masked_times[0]:.4f} ms, "
-          f"plain {masked_times[1]:.4f} ms ({card})")
-
     # the main path, counted: one chunk over B frames
-    knn.hamming_nn.launches = 0
+    reset_launches(knn)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    carry, ys = run_chunk(extract, rig, frames[1:], st, params, settings, tcfg)
+    with SiteSpy(knn, matcher) as spy:
+        carry, ys = run_chunk(extract, rig, frames[1:], st, params, settings, tcfg)
     torch.cuda.synchronize()
     chunk_s = time.perf_counter() - t0
-    launches = knn.hamming_nn.launches
-    if launches != 2 * B:
-        fail(f"hamming_nn launched {launches} times over {B} frames, want {2 * B}")
+    launches = knn.hamming_nn_radius.launches
+    if launches != 2 * B or knn.hamming_nn.launches:
+        fail(f"hamming_nn_radius launched {launches} times and hamming_nn "
+             f"{knn.hamming_nn.launches} over {B} frames, want {2 * B} and 0")
+    wf_entries = [site_entry(knn, f"working_{site}", *spy.args[site], spy.launches[site], card)
+                  for site in ("motion", "local_map")]
+    # the masked (mdBRIEF) variant, off the default path: the local-map
+    # inputs with random stability masks, printed only
+    args = spy.args["local_map"][1]
+    site_entry(knn, "working_local_map_masked", "radius",
+               args + tuple(torch.randint(-2 ** 31, 2 ** 31, args[i].shape, generator=gen,
+                                          dtype=torch.int64, device=dev).to(torch.int32)
+                            for i in (0, 1)), 0, card)
 
     n_in2 = ys["n_in2"].tolist()
     errs = [pose_errors(ys["mt"][b], gt[b + 1]) for b in range(B)]
@@ -434,21 +582,7 @@ def main() -> None:
     # -- 6. the system from the first frame ---------------------------------
     sys_entries = system_phase(dev, knn, card)
 
-    fused, local = timing["motion"], timing["local_map"]
-    print(json.dumps({"kernels": [{
-        "name": "hamming_nn",
-        "route": "cuda",
-        "source": "multicol_slam_tpu_torch/csrc/hamming_nn.cu",
-        "replaces": "multicol_slam_tpu/ops/pallas/hamming_nn.py:146",
-        "replaces_masked": "multicol_slam_tpu/ops/pallas/hamming_nn.py:206",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": fused[0] + local[0],
-        "plain_ms": fused[1] + local[1],
-        "ms_motion": fused[0], "plain_ms_motion": fused[1],
-        "ms_local_map": local[0], "plain_ms_local_map": local[1],
-        "ms_masked": masked_times[0], "plain_ms_masked": masked_times[1],
-    }] + sys_entries}))
+    print(json.dumps({"kernels": wf_entries + sys_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

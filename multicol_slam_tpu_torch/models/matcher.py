@@ -4,14 +4,17 @@ Port of ``multicol_slam_tpu/models/matcher.py`` (reference
 cORBmatcher.cpp): ``match_frame_to_frame`` (:1990-2110),
 ``match_local_map`` (:67-166), ``window_search`` (:326-473),
 ``search_for_initialization`` (:579), ``search_for_triangulation``
-(:968-1155) and ``fuse_candidates`` (:1265-1420). Each search builds one
-boolean gate over (batch, query, candidate) from the mode's rules, then
-one call to ``kernels.hamming_nn`` reduces the whole batch to the best
-and second-best gated Hamming distance per query, in place of the JAX
-package's per-camera ``vmap`` over a distance matrix. Callers fold any
-leading batch axes (neighbour keyframes, fuse targets, camera pairs)
-into the camera axis. The relocalization search waits for the
-relocalization slice.
+(:968-1155) and ``fuse_candidates`` (:1265-1420). Each search reduces the
+whole batch to the best and second-best gated Hamming distance per query
+in one kernel call, in place of the JAX package's per-camera ``vmap``
+over a distance matrix. The searches gated by a pixel window, a level
+window and validity hand those per-row fields to
+``kernels.hamming_nn_radius``, which builds the gate inside the kernel;
+the epipolar-gated triangulation search builds a boolean (batch, query,
+candidate) gate for ``kernels.hamming_nn``. Callers fold any leading
+batch axes (neighbour keyframes, fuse targets, camera pairs) into the
+camera axis. The relocalization search waits for the relocalization
+slice.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.hamming_nn import hamming_nn
+from ..kernels.hamming_nn import hamming_nn, hamming_nn_radius
 from ..ops import hamming as hm
 from ..ops.geometry import epipolar_distance_sq
 from .extractor import Features
@@ -40,32 +43,25 @@ class MatchParams(NamedTuple):
         return hm.thresholds(self.desc_bytes, self.masked)[1]
 
 
-def _sq_dist(a_xy: torch.Tensor, b_uv: torch.Tensor) -> torch.Tensor:
-    """(C, N, M) squared pixel distance between b_uv (C, N, 2) and
-    a_xy (C, M, 2)."""
-    return ((a_xy[:, None, :, :] - b_uv[:, :, None, :]) ** 2).sum(-1)
+def _radius_nn(q, q_mask, q_uv, q_r2, q_lvl_lo, q_lvl_hi, q_ok,
+               db: Features, db_ok, params: MatchParams):
+    """One ``hamming_nn_radius`` call: queries q (Cq, N, W) at q_uv with
+    squared radius q_r2 and level window [q_lvl_lo, q_lvl_hi] against the
+    slots of db where db_ok. Returns (idx, best, second), each (C, N)."""
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    masks = (q_mask.contiguous(), db.desc_mask.contiguous()) if params.masked else ()
+    return hamming_nn_radius(
+        q.contiguous(), db.desc.contiguous(), q_uv.contiguous(), q_r2.contiguous(),
+        i32(q_lvl_lo), i32(q_lvl_hi), q_ok.contiguous(), db.xy.contiguous(),
+        i32(db.level), db_ok.contiguous(), *masks)
 
 
-def _nn(q, q_mask, db, db_mask, gate, params: MatchParams, *, max_dist: int,
-        nn_ratio: float | None = None, mutual: bool = False):
-    """One kernel call over (C, N, M): best per query row within
-    ``max_dist``, the optional ratio test, the optional mutual check (a
-    second call on the transposed problem: the column's best row must be
-    the row, ties to the lowest row as ``jnp.argmin``), then one winner
-    per target column (hamming.py gated_nn_match +
+def _accept(idx, best, second, m: int, max_dist: int, nn_ratio: float | None = None):
+    """Best per query row within ``max_dist``, the optional ratio test,
+    then one winner per target column (hamming.py gated_nn_match +
     resolve_duplicate_targets)."""
-    q, db = q.contiguous(), db.contiguous()
-    masks = (q_mask.contiguous(), db_mask.contiguous()) if params.masked \
-        else (None, None)
-    idx, best, second = hamming_nn(q, db, gate.contiguous(), *masks)
     match = hm.nn_accept(idx, best, second, max_dist, nn_ratio)
-    if mutual:
-        col_best = hamming_nn(db, q, gate.transpose(-1, -2).contiguous(),
-                              masks[1], masks[0])[0]
-        back = torch.gather(col_best, -1, torch.clamp(idx, min=0).long())
-        rows = torch.arange(q.shape[1], dtype=back.dtype, device=back.device)
-        match = torch.where(back == rows, match, torch.full_like(match, -1))
-    return hm.resolve_duplicate_targets(match, best, db.shape[1])
+    return hm.resolve_duplicate_targets(match, best, m)
 
 
 def match_frame_to_frame(cur: Features, last: Features,
@@ -80,14 +76,11 @@ def match_frame_to_frame(cur: Features, last: Features,
     none)."""
     sf = params.scale_factor
     radius = th * sf ** last.level.to(torch.float32)              # (C, Kl)
-    gate = _sq_dist(cur.xy, uv_pred) <= (radius ** 2)[..., None]
-    clvl = cur.level[:, None, :]
-    llvl = last.level[:, :, None]
-    gate &= (clvl >= llvl - 1) & (clvl <= llvl + 1)
-    gate &= (cur.valid & ~cur_has_point)[:, None, :]
-    gate &= (last.valid & last_has_point & pred_ok)[:, :, None]
-    return _nn(last.desc, last.desc_mask, cur.desc, cur.desc_mask, gate, params,
-               max_dist=params.th_high)
+    found = _radius_nn(last.desc, last.desc_mask, uv_pred, radius ** 2,
+                       last.level - 1, last.level + 1,
+                       last.valid & last_has_point & pred_ok,
+                       cur, cur.valid & ~cur_has_point, params)
+    return _accept(*found, cur.xy.shape[1], params.th_high)
 
 
 def match_local_map(feats: Features, has_point: torch.Tensor,
@@ -102,19 +95,12 @@ def match_local_map(feats: Features, has_point: torch.Tensor,
     window [level-1, level], passing the 0.9 ratio test. Returns (C, P)
     indices into the frame slots (-1 = none)."""
     sf = params.scale_factor
-    C = feats.xy.shape[0]
     r = torch.where(view_cos > 0.998, 2.5, 4.0)
     radius = th * r * sf ** pred_level.to(torch.float32)          # (C, P)
-    gate = _sq_dist(feats.xy, uv_pred) <= (radius ** 2)[..., None]
-    flvl = feats.level[:, None, :]
-    plvl = pred_level[:, :, None]
-    gate &= (flvl >= plvl - 1) & (flvl <= plvl)
-    gate &= (feats.valid & ~has_point)[:, None, :]
-    gate &= pred_ok[:, :, None]
-    q = pt_desc.expand((C,) + tuple(pt_desc.shape))
-    qm = pt_mask.expand((C,) + tuple(pt_mask.shape))
-    return _nn(q, qm, feats.desc, feats.desc_mask, gate, params,
-               max_dist=params.th_high, nn_ratio=nn_ratio)
+    found = _radius_nn(pt_desc[None], pt_mask[None], uv_pred, radius ** 2,
+                       pred_level - 1, pred_level, pred_ok,
+                       feats, feats.valid & ~has_point, params)
+    return _accept(*found, feats.xy.shape[1], params.th_high, nn_ratio)
 
 
 def window_search(f1: Features, f2: Features, f1_select: torch.Tensor,
@@ -125,11 +111,10 @@ def window_search(f1: Features, f2: Features, f1_select: torch.Tensor,
     window and the same octave, with the ratio test and TH_HIGH (TH_LOW
     with ``use_low_th``). Returns (C, K1) indices into f2's slots."""
     max_d = params.th_low if use_low_th else params.th_high
-    gate = _sq_dist(f2.xy, f1.xy) <= window * window
-    gate &= f2.level[:, None, :] == f1.level[:, :, None]
-    gate &= f2.valid[:, None, :] & (f1.valid & f1_select)[:, :, None]
-    return _nn(f1.desc, f1.desc_mask, f2.desc, f2.desc_mask, gate, params,
-               max_dist=max_d, nn_ratio=nn_ratio)
+    r2 = f1.xy.new_full(f1.valid.shape, window * window)
+    found = _radius_nn(f1.desc, f1.desc_mask, f1.xy, r2, f1.level, f1.level,
+                       f1.valid & f1_select, f2, f2.valid, params)
+    return _accept(*found, f2.xy.shape[1], max_d, nn_ratio)
 
 
 def search_for_initialization(f1: Features, f2: Features, params: MatchParams,
@@ -137,12 +122,23 @@ def search_for_initialization(f1: Features, f2: Features, params: MatchParams,
                               nn_ratio: float = 0.9) -> torch.Tensor:
     """SearchForInitialization (cORBmatcher.cpp:579): window search at
     level 0 only, TH_LOW, ratio test, mutual best, one winner per target.
-    Returns (C, K1) indices into f2's slots."""
-    gate = _sq_dist(f2.xy, f1.xy) <= window * window
-    gate &= (f1.level == 0)[:, :, None] & (f2.level == 0)[:, None, :]
-    gate &= f2.valid[:, None, :] & f1.valid[:, :, None]
-    return _nn(f1.desc, f1.desc_mask, f2.desc, f2.desc_mask, gate, params,
-               max_dist=params.th_low, nn_ratio=nn_ratio, mutual=True)
+    The mutual check is the same search with the roles swapped (the
+    window is symmetric, and (a - b)^2 == (b - a)^2 in IEEE arithmetic):
+    the column's best row must be the row, ties to the lowest row as
+    ``jnp.argmin``. Returns (C, K1) indices into f2's slots."""
+    def search(fq: Features, fdb: Features):
+        zero = torch.zeros_like(fq.level)
+        return _radius_nn(fq.desc, fq.desc_mask, fq.xy,
+                          fq.xy.new_full(fq.valid.shape, window * window), zero, zero,
+                          fq.valid & (fq.level == 0), fdb, fdb.valid, params)
+
+    idx, best, second = search(f1, f2)
+    match = hm.nn_accept(idx, best, second, params.th_low, nn_ratio)
+    col_best = search(f2, f1)[0]
+    back = torch.gather(col_best, -1, torch.clamp(idx, min=0).long())
+    rows = torch.arange(idx.shape[1], dtype=back.dtype, device=back.device)
+    match = torch.where(back == rows, match, torch.full_like(match, -1))
+    return hm.resolve_duplicate_targets(match, best, f2.xy.shape[1])
 
 
 def search_for_triangulation(f1: Features, f1_free: torch.Tensor,
@@ -158,8 +154,10 @@ def search_for_triangulation(f1: Features, f1_free: torch.Tensor,
                                E12[:, None, None])
     gate = epi < epi_th
     gate &= (f1.valid & f1_free)[:, :, None] & (f2.valid & f2_free)[:, None, :]
-    return _nn(f1.desc, f1.desc_mask, f2.desc, f2.desc_mask, gate, params,
-               max_dist=params.th_low)
+    masks = (f1.desc_mask.contiguous(), f2.desc_mask.contiguous()) if params.masked else ()
+    found = hamming_nn(f1.desc.contiguous(), f2.desc.contiguous(), gate.contiguous(),
+                       *masks)
+    return _accept(*found, f2.xy.shape[1], params.th_low)
 
 
 def fuse_candidates(feats: Features, has_point: torch.Tensor,
@@ -175,13 +173,8 @@ def fuse_candidates(feats: Features, has_point: torch.Tensor,
     Returns (C, P) indices into the keyframe's slots."""
     sf = params.scale_factor
     desc_th = params.th_high if loose_desc else params.th_low
-    C = feats.xy.shape[0]
     radius = th * sf ** pred_level.to(torch.float32)
-    gate = _sq_dist(feats.xy, uv_pred) <= (radius ** 2)[..., None]
-    flvl = feats.level[:, None, :]
-    plvl = pred_level[:, :, None]
-    gate &= (flvl >= plvl - 1) & (flvl <= plvl + 1)
-    gate &= feats.valid[:, None, :] & pred_ok[:, :, None]
-    q = pt_desc.expand((C,) + tuple(pt_desc.shape))
-    qm = pt_mask.expand((C,) + tuple(pt_mask.shape))
-    return _nn(q, qm, feats.desc, feats.desc_mask, gate, params, max_dist=desc_th)
+    found = _radius_nn(pt_desc[None], pt_mask[None], uv_pred, radius ** 2,
+                       pred_level - 1, pred_level + 1, pred_ok, feats, feats.valid,
+                       params)
+    return _accept(*found, feats.xy.shape[1], desc_th)

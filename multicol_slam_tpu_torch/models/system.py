@@ -29,8 +29,12 @@ from .tracking import Tracker, TrackerConfig, TrackState
 class MultiColSLAM:
     """The cSystem equivalent: construct from a calibration directory (or
     a rig) and settings, feed synchronized image sets, read back poses.
-    Tensors live on the rig's device (a rig loaded from ``calib_dir`` is
-    on the CPU; pass ``rig=rig.to("cuda")`` for the card)."""
+
+    The system runs on ``device``: by default the card ("cuda"), or the
+    device of a ``rig`` passed in. A rig loaded from ``calib_dir`` goes
+    onto the device, and so does a passed rig when ``device`` is named.
+    Without a CUDA device the default raises; ``device="cpu"`` runs the
+    system on the CPU (the Hamming-NN kernel's plain version)."""
 
     def __init__(self, calib_dir: Optional[str] = None,
                  settings_path: Optional[str] = None,
@@ -39,7 +43,7 @@ class MultiColSLAM:
                  capacity_pts: int = 30000, capacity_kfs: int = 256,
                  enable_loop_closing: bool = True,
                  vocabulary_path: Optional[str] = None,
-                 rig=None):
+                 rig=None, device=None):
         if async_mapping:
             raise NotImplementedError(
                 "async_mapping=True is not ported yet (ROADMAP queue 1, item "
@@ -56,9 +60,16 @@ class MultiColSLAM:
             config_io.load_settings(settings_path) if settings_path
             else config_io.SlamSettings())
         s = self.settings
+        if device is None:
+            device = rig.M_c.device if rig is not None else "cuda"
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "MultiColSLAM runs on the card by default and no CUDA device is "
+                "available: pass device='cpu' to run on the CPU")
         if rig is None:
             rig, _ = config_io.load_mcs(calib_dir)
-        self.rig = rig
+        self.rig = rig.to(self.device)
         C = self.rig.n_cams
         cams = self.rig.cams
         w = int(float(cams.width[0]))

@@ -110,7 +110,10 @@ def _load_interior_orientation(path: str, dtype) -> tuple[CameraModel, bool]:
 
 def load_mcs(calib_dir: str, dtype=torch.float32, n_mask_levels: int = 4):
     """Load a rig: MultiCamSys_Calibration.yaml + InteriorOrientationFisheye
-    {c}.yaml. Returns (Rig on the CPU, per-level (N, H_l, W_l) uint8 masks)."""
+    {c}.yaml. Returns (Rig on the CPU, per-level (N, H_l, W_l) uint8 masks).
+    A loader, not an entry point: it stays on the CPU, where the tests hold
+    the port against the JAX package; ``MultiColSLAM`` moves the rig onto
+    its device, the card by default."""
     d = load_opencv_yaml(os.path.join(calib_dir, "MultiCamSys_Calibration.yaml"))
     n_cams = int(d["CameraSystem.nrCams"])
     m_c_min = np.zeros((n_cams, 6), np.float64)

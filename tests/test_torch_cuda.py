@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: the Hamming-NN kernel against its
-plain version, both variants, at the WORKING frame's shapes and ragged
-ones, with duplicate minima and fully gated rows. Equality is exact.
+"""The port's CUDA kernel on the card: both entries of the Hamming-NN
+kernel against their plain versions, both variants, at the system's
+shapes and ragged ones, with duplicate minima, fully gated rows and the
+adversarial cases of tests/_radius_cases.py. Equality is exact.
 
 These tests import no JAX, so they also run where JAX is not installed:
 
@@ -9,10 +10,13 @@ These tests import no JAX, so they also run where JAX is not installed:
 Without a card they skip.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from multicol_slam_tpu_torch.kernels import hamming_nn as knn
+
+import _radius_cases as RC
 
 pytestmark = pytest.mark.cuda
 
@@ -89,8 +93,9 @@ def _features(n, gen, dev):
 
 
 def test_mutual_search_launches_twice_and_matches_the_cpu(dev):
-    """search_for_initialization's mutual check is a second launch on the
-    transposed problem; on the card it must equal the CPU path."""
+    """search_for_initialization's mutual check is a second launch of the
+    window-gated entry with the roles swapped; on the card it must equal
+    the CPU path."""
     from multicol_slam_tpu_torch.models import matcher as tm
     gen = torch.Generator(device=dev).manual_seed(7)
     f1 = _features(800, gen, dev)
@@ -99,11 +104,59 @@ def test_mutual_search_launches_twice_and_matches_the_cpu(dev):
     flip &= _words(f1.desc.shape, gen, dev)
     f2 = f1._replace(xy=f1.xy + torch.randn(f1.xy.shape, generator=gen, device=dev),
                      desc=f1.desc ^ flip)
-    before = knn.hamming_nn.launches
+    before = knn.hamming_nn_radius.launches
     got = tm.search_for_initialization(f1, f2, tm.MatchParams())
     torch.cuda.synchronize()
-    assert knn.hamming_nn.launches == before + 2
+    assert knn.hamming_nn_radius.launches == before + 2
     cpu = lambda f: type(f)(*(t.cpu() for t in f))
     want = tm.search_for_initialization(cpu(f1), cpu(f2), tm.MatchParams())
     assert torch.equal(got.cpu(), want)
     assert (want >= 0).sum() > 100
+
+
+def _radius_args(case, masked, dev):
+    words = lambda a: torch.from_numpy(a.view(np.int32).copy()).to(dev)
+    args = [words(case["q"]), words(case["db"])] + [
+        torch.from_numpy(case[k]).to(dev) for k in (
+            "q_uv", "q_r2", "q_lvl_lo", "q_lvl_hi", "q_ok", "db_xy", "db_lvl", "db_ok")]
+    return args + ([words(case["q_mask"]), words(case["db_mask"])] if masked else [])
+
+
+def _radius_matches_plain(args):
+    before = knn.hamming_nn_radius.launches
+    got = knn.hamming_nn_radius(*args)
+    torch.cuda.synchronize()
+    assert knn.hamming_nn_radius.launches == before + 1
+    for a, b in zip(got, knn.hamming_nn_radius_reference(*args)):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("case", RC.CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_radius_entry_matches_plain_on_adversarial_cases(dev, case, masked):
+    """Points exactly on the radius (a fused multiply-add would flip
+    them), both edges of the level window, fully gated rows, duplicate
+    minima, queries shared by every camera, 4/8/16 words."""
+    got = _radius_matches_plain(_radius_args(RC.radius_case(case, seed=len(case)),
+                                             masked, dev))
+    assert (got[0] >= 0).any()
+
+
+@pytest.mark.parametrize("C,Cq,N,M", [(3, 3, 800, 800), (3, 1, 1024, 800),
+                                      (12, 1, 1024, 800), (2, 2, 1, 1), (2, 1, 129, 257)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_radius_entry_matches_plain_at_the_systems_shapes(dev, C, Cq, N, M, masked):
+    """Initialization, window search and motion-model tracking (3, 800) x
+    (3, 800); local-map tracking (1, 1024) x (3, 800) with the map points
+    shared by the cameras; fuse into 4 targets (1, 1024) x (12, 800);
+    ragged shapes."""
+    case = RC.radius_case("broadcast" if Cq == 1 else "common", seed=N + M, C=C, N=N, M=M)
+    _radius_matches_plain(_radius_args(case, masked, dev))
+
+
+def test_system_runs_on_the_card_by_default(dev):
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils import config_io
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, enable_loop_closing=False)
+    assert slam.device.type == "cuda" and slam.rig.M_c.is_cuda

@@ -21,6 +21,7 @@ from multicol_slam_tpu.ops import hamming as jhm
 from multicol_slam_tpu_torch.kernels import hamming_nn as knn
 from multicol_slam_tpu_torch.ops import hamming as thm
 
+import _radius_cases as RC
 from _torchutil import f32
 
 
@@ -228,38 +229,137 @@ def test_wrapper_rejects_bad_inputs(bad):
         knn.hamming_nn(*args)
 
 
+def _features(bits, xy, level, valid):
+    from multicol_slam_tpu_torch.models.extractor import Features
+    C, K = valid.shape
+    return Features(
+        xy=torch.from_numpy(xy), level=torch.from_numpy(level),
+        angle=torch.zeros((C, K)), response=torch.ones((C, K)),
+        ray=torch.zeros((C, K, 3)), desc=thm.pack_bits_u32(torch.from_numpy(bits)),
+        desc_mask=torch.full((C, K, bits.shape[-1] // 32), -1, dtype=torch.int32),
+        valid=torch.from_numpy(valid))
+
+
 def test_mutual_nn_on_the_kernel_path_matches_jax():
-    """The matchers' mutual rule (``matcher._nn``: the kernel wrapper on
-    the transposed gate, then one winner per column) against the JAX
-    package's ``gated_nn_match(mutual=True)`` + ``resolve_duplicate_targets``
-    on the same distances. Descriptors are drawn near a few shared
-    patterns, so distances tie often; some rows and columns are fully
-    gated."""
+    """The matchers' mutual rule (``search_for_initialization``: the
+    window-gated entry on the swapped problem, then one winner per column)
+    against the JAX package's ``gated_nn_match(mutual=True)`` +
+    ``resolve_duplicate_targets`` on the same distances and the same
+    window gate, built here with numpy. Descriptors are drawn near a few
+    shared patterns, so distances tie often; some rows and columns are
+    invalid or off level 0."""
     from multicol_slam_tpu_torch.models import matcher as tm
     rng = np.random.default_rng(6)
-    C, N, M = 3, 40, 56
+    C, N, M, window = 3, 40, 56, 20.0
     pool = rng.integers(0, 2, (6, 256)).astype(np.uint8)
 
     def draw(n):
         bits = pool[rng.integers(0, len(pool), (C, n))].copy()
         flip = rng.random(bits.shape) < 0.006
-        return bits ^ flip.astype(np.uint8)
+        xy = rng.uniform(0, 60, (C, n, 2)).astype(np.float32)
+        level = (rng.random((C, n)) < 0.15).astype(np.int32)
+        valid = rng.random((C, n)) < 0.9
+        return bits ^ flip.astype(np.uint8), xy, level, valid
 
-    qb, dbb = draw(N), draw(M)
-    gate = rng.random((C, N, M)) < 0.6
-    gate[:, :4] = False
-    gate[:, :, :6] = False
-    dist = (qb[:, :, None, :] != dbb[:, None, :, :]).sum(-1).astype(np.int32)
-    q, db = thm.pack_bits_u32(torch.from_numpy(qb)), thm.pack_bits_u32(torch.from_numpy(dbb))
-    ones = torch.full_like(q, -1), torch.full_like(db, -1)
-    got = tm._nn(q, ones[0], db, ones[1], torch.from_numpy(gate), tm.MatchParams(),
-                 max_dist=5, nn_ratio=0.95, mutual=True)
-    one_way = tm._nn(q, ones[0], db, ones[1], torch.from_numpy(gate), tm.MatchParams(),
-                     max_dist=5, nn_ratio=0.95)
+    a, b = draw(N), draw(M)
+    a[3][:, :4] = False
+    b[3][:, :6] = False
+    dist = (a[0][:, :, None, :] != b[0][:, None, :, :]).sum(-1).astype(np.int32)
+    gate = RC.sq_dist(b[1], a[1]) <= np.float32(window * window)
+    gate &= ((a[2] == 0) & a[3])[..., None] & ((b[2] == 0) & b[3])[:, None, :]
+    params = tm.MatchParams()
+    got = tm.search_for_initialization(_features(*a), _features(*b), params,
+                                       window=window, nn_ratio=0.9)
+    n_one_way = 0
     with f32():
         for c in range(C):
-            j_match, j_bd = jhm.gated_nn_match(jnp.asarray(dist[c]), jnp.asarray(gate[c]),
-                                               max_dist=5, nn_ratio=0.95, mutual=True)
+            d, g = jnp.asarray(dist[c]), jnp.asarray(gate[c])
+            j_match, j_bd = jhm.gated_nn_match(d, g, max_dist=params.th_low,
+                                               nn_ratio=0.9, mutual=True)
             want = jhm.resolve_duplicate_targets(j_match, j_bd, M)
             np.testing.assert_array_equal(got[c].numpy(), np.asarray(want))
-    assert 0 < (got >= 0).sum() < (one_way >= 0).sum()
+            one_way = jhm.gated_nn_match(d, g, max_dist=params.th_low, nn_ratio=0.9)[0]
+            n_one_way += int((np.asarray(one_way) >= 0).sum())
+    assert 0 < (got >= 0).sum() < n_one_way
+
+
+def _radius_args(case, masked):
+    """A case of tests/_radius_cases.py as the entry's CPU tensors."""
+    words = lambda a: torch.from_numpy(a.view(np.int32).copy())
+    args = [words(case["q"]), words(case["db"])] + [
+        torch.from_numpy(case[k]) for k in ("q_uv", "q_r2", "q_lvl_lo", "q_lvl_hi",
+                                            "q_ok", "db_xy", "db_lvl", "db_ok")]
+    return args, ([words(case["q_mask"]), words(case["db_mask"])] if masked else [])
+
+
+@pytest.mark.parametrize("case", RC.CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_radius_reference_matches_a_numpy_gate(case, masked):
+    """Entry A's plain version (and the wrapper on CPU tensors) equals a
+    dense gate built with numpy in float32 plus entry B's plain version,
+    on the adversarial cases; each case does what it claims."""
+    c = RC.radius_case(case, seed=len(case))
+    args, masks = _radius_args(c, masked)
+    gate = RC.dense_gate(c)
+    want = knn.hamming_nn_reference(args[0], args[1], torch.from_numpy(gate), *masks)
+    _assert_same(knn.hamming_nn_radius_reference(*args, *masks), want)
+    before = knn.hamming_nn_radius.launches
+    _assert_same(knn.hamming_nn_radius(*args, *masks), want)
+    assert knn.hamming_nn_radius.launches == before      # CPU: the plain version
+
+    idx, best, second = (w.numpy() for w in want)
+    C, N = idx.shape
+    cam, rows = np.arange(C)[:, None], np.arange(N)
+    src = c["src"]
+    own = gate[cam, rows, src]
+    live = c["q_ok"] & c["db_ok"][cam, src]
+    if case == "on_radius":
+        np.testing.assert_array_equal(own, live & (rows % 2 == 0))
+    elif case == "level_edges":
+        np.testing.assert_array_equal(own, live & np.isin(rows % 4, (1, 2)))
+    elif case == "fully_gated":
+        assert (idx[:, 0::5] == -1).all() and (idx[:, 1::5] == -1).all()
+        assert (idx[:, 2::5] == -1).all() and (best[:, 2::5] == thm.INVALID).all()
+    elif case == "duplicate_minima":
+        assert (best[live] == 0).all() and (second[live] == 0).all()
+        np.testing.assert_array_equal(idx[live], src[live])    # the lower column
+    else:
+        assert own[live].all()
+    if case in ("on_radius", "level_edges", "broadcast", "words4", "words16"):
+        # the own row wins wherever the gate lets it through
+        mine = own if case != "broadcast" else own & (cam == 0)
+        assert (idx[mine] == src[mine]).mean() > 0.9
+
+
+_RADIUS_NAMES = ("q", "db", "q_uv", "q_r2", "q_lvl_lo", "q_lvl_hi", "q_ok",
+                 "db_xy", "db_lvl", "db_ok")
+
+
+@pytest.mark.parametrize("bad", ["q_dtype", "q_cameras", "uv_dtype", "uv_shape",
+                                 "r2_shape", "lvl_dtype", "ok_dtype", "db_lvl_shape",
+                                 "one_mask", "mask_shape"])
+def test_radius_wrapper_rejects_bad_inputs(bad):
+    args, masks = _radius_args(RC.radius_case("on_radius", C=2, N=4, M=5), True)
+    kw = dict(zip(_RADIUS_NAMES, args))
+    if bad == "q_dtype":
+        kw["q"] = kw["q"].to(torch.int64)
+    elif bad == "q_cameras":
+        kw["q"] = torch.cat([kw["q"], kw["q"][:1]])
+    elif bad == "uv_dtype":
+        kw["q_uv"] = kw["q_uv"].double()
+    elif bad == "uv_shape":
+        kw["q_uv"] = kw["q_uv"][..., :1]
+    elif bad == "r2_shape":
+        kw["q_r2"] = kw["q_r2"][:, :3]
+    elif bad == "lvl_dtype":
+        kw["q_lvl_lo"] = kw["q_lvl_lo"].to(torch.int64)
+    elif bad == "ok_dtype":
+        kw["q_ok"] = kw["q_ok"].to(torch.uint8)
+    elif bad == "db_lvl_shape":
+        kw["db_lvl"] = kw["db_lvl"][:, :4]
+    elif bad == "one_mask":
+        kw["q_mask"] = masks[0]
+    elif bad == "mask_shape":
+        kw["q_mask"], kw["db_mask"] = masks[0][:, :3], masks[1]
+    with pytest.raises((TypeError, ValueError)):
+        knn.hamming_nn_radius(**kw)

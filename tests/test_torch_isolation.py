@@ -1,7 +1,8 @@
 """The port stands alone: importing it loads no JAX, the Hamming-NN
-wrapper takes its plain version for CPU tensors without counting a
-kernel launch, and the system refuses the modes that are not ported yet
-instead of ignoring them."""
+wrappers take their plain versions for CPU tensors without counting a
+kernel launch and raise on other devices, the system runs on the card
+unless asked for the CPU, and it refuses the modes that are not ported
+yet instead of ignoring them."""
 
 import os
 import subprocess
@@ -46,6 +47,8 @@ def test_import_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "chip_smoke.radius_cases()\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'multicol_slam_tpu'))\n"
             "assert not bad, bad\n"
@@ -81,6 +84,16 @@ def test_other_devices_raise_instead_of_falling_back():
         knn.hamming_nn(q, db, gate)
 
 
+def test_radius_entry_on_other_devices_raises():
+    z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device="meta")
+    i32, b8 = torch.int32, torch.bool
+    with pytest.raises(RuntimeError, match="no kernel"):
+        knn.hamming_nn_radius(z(1, 2, 8, dtype=i32), z(1, 3, 8, dtype=i32), z(1, 2, 2),
+                              z(1, 2), z(1, 2, dtype=i32), z(1, 2, dtype=i32),
+                              z(1, 2, dtype=b8), z(1, 3, 2), z(1, 3, dtype=i32),
+                              z(1, 3, dtype=b8))
+
+
 @pytest.fixture
 def small_rig():
     from multicol_slam_tpu_torch.ops.rig import scale_rig
@@ -107,3 +120,27 @@ def test_unported_tracker_paths_raise(small_rig):
     with pytest.raises(NotImplementedError, match="item 10"):
         slam.track_batch(None, [])
     assert slam.state.name == "NO_IMAGES_YET"
+
+
+@pytest.mark.parametrize("source,device,want", [
+    ("calib_dir", None, "raises"),
+    ("calib_dir", "cpu", "cpu"),
+    ("rig", None, "cpu"),          # a passed rig keeps its device
+    ("rig", "cpu", "cpu"),
+])
+def test_system_runs_on_the_card_unless_asked_for_the_cpu(
+        small_rig, monkeypatch, source, device, want):
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils import config_io
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(calib_dir=config_io.SYNTH_RIG_DIR) if source == "calib_dir" \
+        else dict(rig=small_rig)
+    if device is not None:
+        kw["device"] = device
+    if want == "raises":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MultiColSLAM(enable_loop_closing=False, **kw)
+        return
+    slam = MultiColSLAM(enable_loop_closing=False, **kw)
+    assert slam.device == torch.device(want)
+    assert slam.rig.M_c.device.type == want and slam.rig.cams.u0.device.type == want

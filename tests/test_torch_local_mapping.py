@@ -89,19 +89,23 @@ def test_process_keyframe_matches_jax(carried):
 
 
 def test_stages_run_through_the_kernel_wrapper(carried, monkeypatch):
-    """Every matching stage of the pass reduces through ``hamming_nn``:
-    triangulation, cross-camera and fuse, one call each (two fuse calls,
-    forward and reverse)."""
+    """Every matching stage of the pass reduces through the kernel's
+    wrappers: triangulation and cross-camera through the dense-gate entry
+    ``hamming_nn``, one call each, and fuse through the window-gated entry
+    ``hamming_nn_radius`` (two calls, forward and reverse)."""
     calls = []
-    orig = tm.hamming_nn
+    for name in ("hamming_nn", "hamming_nn_radius"):
+        orig = getattr(tm, name)
 
-    def spy(q, db, gate, *masks):
-        calls.append(tuple(gate.shape))
-        return orig(q, db, gate, *masks)
+        def spy(q, db, *rest, _name=name, _orig=orig):
+            calls.append((_name, q.shape[:2], db.shape[:2]))
+            return _orig(q, db, *rest)
 
-    monkeypatch.setattr(tm, "hamming_nn", spy)
+        monkeypatch.setattr(tm, name, spy)
     _port_pass(carried)
     C, K = 3, 800
-    assert (tlm.LocalMapper.TRIANG_NEIGHBORS * C, K, K) in calls
-    assert (C, K, K) in calls                               # three camera pairs
-    assert sum(1 for s in calls if s[2] == K and s[1] >= 256) >= 2   # fuse
+    T = tlm.LocalMapper.TRIANG_NEIGHBORS * C
+    assert ("hamming_nn", (T, K), (T, K)) in calls
+    assert ("hamming_nn", (C, K), (C, K)) in calls            # three camera pairs
+    fuse = [c for c in calls if c[0] == "hamming_nn_radius"]
+    assert len(fuse) >= 2 and all(c[1][0] == 1 and c[2][1] == K for c in fuse)

@@ -204,3 +204,55 @@ def test_th_low_modes_use_th_low(d):
     win_high = int(tm.window_search(a, b, yes, p)[0, 0])
     assert (init, tri, win_low) == ((0, 0, 0) if d <= p.th_low else (-1, -1, -1))
     assert win_high == (0 if d <= p.th_high else -1)
+
+
+def _tiny_inputs(search):
+    """Arguments of one search at C = 2 cameras, K = 6 slots, P = 5 points."""
+    rng = np.random.default_rng(0)
+    C, K, P = 2, 6, 5
+
+    def feats():
+        return tm.Features(
+            xy=torch.from_numpy(rng.uniform(0, 20, (C, K, 2)).astype(np.float32)),
+            level=torch.zeros((C, K), dtype=torch.int32), angle=torch.zeros((C, K)),
+            response=torch.ones((C, K)), ray=torch.tensor([0.0, 0.0, 1.0]).expand(C, K, 3),
+            desc=torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (C, K, 8), dtype=np.int32)),
+            desc_mask=torch.full((C, K, 8), -1, dtype=torch.int32),
+            valid=torch.ones((C, K), dtype=torch.bool))
+
+    f1, f2 = feats(), feats()
+    yes = torch.ones((C, K), dtype=torch.bool)
+    pts = (torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (P, 8), dtype=np.int32)),
+           torch.full((P, 8), -1, dtype=torch.int32),
+           torch.from_numpy(rng.uniform(0, 20, (C, P, 2)).astype(np.float32)),
+           torch.ones((C, P), dtype=torch.bool))
+    lvl, vcos = torch.zeros((C, P), dtype=torch.int32), torch.ones((C, P))
+    p = tm.MatchParams()
+    return {"match_frame_to_frame": (f1, f2, yes, ~yes, f2.xy, yes, p),
+            "match_local_map": (f1, ~yes) + pts + (lvl, vcos, p),
+            "window_search": (f1, f2, yes, p),
+            "search_for_initialization": (f1, f2, p),
+            "fuse_candidates": (f1, ~yes) + pts + (lvl, p),
+            "search_for_triangulation": (f1, yes, f2, yes, torch.eye(3).expand(C, 3, 3), p),
+            }[search]
+
+
+@pytest.mark.parametrize("search,entry,calls", [
+    ("match_frame_to_frame", "hamming_nn_radius", 1),
+    ("match_local_map", "hamming_nn_radius", 1),
+    ("window_search", "hamming_nn_radius", 1),
+    ("search_for_initialization", "hamming_nn_radius", 2),
+    ("fuse_candidates", "hamming_nn_radius", 1),
+    ("search_for_triangulation", "hamming_nn", 1),
+])
+def test_each_search_calls_its_kernel_entry(search, entry, calls, monkeypatch):
+    """The window-gated searches build no dense gate: they call entry A
+    (the mutual check of initialization a second time); the epipolar
+    triangulation search calls entry B with its (C, K, K) gate."""
+    seen = []
+    for name in ("hamming_nn", "hamming_nn_radius"):
+        orig = getattr(tm, name)
+        monkeypatch.setattr(tm, name, lambda *a, _n=name, _f=orig: seen.append(_n) or _f(*a))
+    out = getattr(tm, search)(*_tiny_inputs(search))
+    assert seen == [entry] * calls
+    assert out.shape == (2, 5 if search in ("match_local_map", "fuse_candidates") else 6)

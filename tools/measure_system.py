@@ -15,7 +15,8 @@ rendered on the device, synchronous mapping) and prints:
   pass of the process apart: it carries the solvers' first use;
 - over ``--profile-frames`` WORKING frames after the run, under
   ``torch.profiler``: the summed device time, the profiled wall time,
-  the busy share of that profiled window, and the busiest operators.
+  the busy share of that profiled window, the device operations (kernels
+  and copies) a frame, and the busiest operators.
   The same frames are first run unprofiled in this process, so the
   unprofiled busy share (device time over unprofiled wall) is an
   estimate from two passes over the same frames, not one reading.
@@ -82,14 +83,13 @@ def main() -> None:
                               check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    rig, _ = config_io.load_mcs(config_io.SYNTH_RIG_DIR)
-    rig = rig.to(dev)
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, enable_loop_closing=False,
+                        device=dev)
     n_all = args.frames + args.profile_frames
     gt = synthetic.bench_trajectory(n_all)
-    render = synthetic.make_renderer(rig)
+    render = synthetic.make_renderer(slam.rig)
     frames = torch.round(render(torch.tensor(gt, dtype=torch.float32, device=dev)))
     frames = frames.to(torch.uint8)
-    slam = MultiColSLAM(rig=rig, enable_loop_closing=False)
 
     # each mapping stage timed with a sync on both sides
     stage_ms: dict[str, list[float]] = defaultdict(list)
@@ -169,6 +169,7 @@ def main() -> None:
             "frames": len(window), "paths": slam.tracker.frame_path[-len(window):],
             "mapping_passes": len(slam.mapping_ms) - n_mapped,
             "device_ms": dev_ms, "profiled_wall_ms": prof_wall,
+            "device_ops_per_frame": sum(e.count for e in on_dev) / len(window),
             "busy_share_profiled": dev_ms / prof_wall,
             "unprofiled_wall_ms": plain_wall,
             "busy_share_unprofiled_estimate": dev_ms / plain_wall,
@@ -187,7 +188,8 @@ def main() -> None:
         print(f"profiled {p['frames']} frames {p['paths']}: device {p['device_ms']:.3f} ms "
               f"in {p['profiled_wall_ms']:.3f} ms profiled wall (busy "
               f"{p['busy_share_profiled']:.4f}); unprofiled wall {p['unprofiled_wall_ms']:.3f} ms "
-              f"(busy estimate {p['busy_share_unprofiled_estimate']:.4f})")
+              f"(busy estimate {p['busy_share_unprofiled_estimate']:.4f}); "
+              f"{p['device_ops_per_frame']:.1f} device operations a frame")
         for e in p["top_ops"]:
             print(f"  {e['name']}: {e['calls']} calls, {e['device_ms']:.3f} device ms")
     print(json.dumps(out))
