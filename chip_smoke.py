@@ -25,31 +25,64 @@ Phases, each fatal on failure:
      window-gated entry twice per frame and the dense-gate entry never;
   5. the first frames of that run against the port's CPU path (the plain
      Hamming-NN versions) on the same frames and map;
-  6. the system from the first frame: MultiColSLAM(calib_dir=...) with no
-     device named, so on the card, at the default SlamSettings on the same
-     rig, fed 40 frames of synthetic.bench_trajectory rendered on the card,
-     with no ground-truth map: bootstrap (mutual matching, 5-point
-     RANSAC), the Tracker state machine, keyframes mapped synchronously
-     (triangulation, cross-camera points, fuse, Schur local BA). It must
+  6. the system from the first frame: MultiColSLAM(calib_dir=...) at its
+     defaults, so on the card and with loop closing on, at the default
+     SlamSettings on the same rig, fed the first 40 of 43 frames of
+     synthetic.bench_trajectory rendered on the card, with no ground-truth
+     map: bootstrap (mutual matching, 5-point RANSAC), the Tracker state
+     machine, keyframes mapped synchronously (triangulation, cross-camera
+     points, fuse, Schur local BA) and handed to the loop closer. It must
      initialize within 20 frames, stay WORKING on >= 90% of the frames
      after that, create and map >= 3 keyframes, reach an ATE (Sim3-aligned)
-     of at most 5 cm, and launch the kernel at every call site of the
+     of at most 5 cm, build the loop closer with a trained vocabulary, put
+     every keyframe in the keyframe database, fire no loop on this
+     loop-free path, and launch the kernel at every call site of the
      system's path: the window-gated entry at initialization and its
      mutual check, the previous-frame window search, motion-model and
      local-map tracking and fuse; the dense-gate entry at triangulation
      and cross-camera triangulation. Each site's entry must equal its plain
      version exactly on the site's recorded inputs. Per-frame times by kind
      and per-pass mapping times are printed beside the card's name and
-     power limit.
+     power limit;
+  7. relocalization on the card, on phase 6's system: (a) a forced
+     relocalization on frame 40 (BoW candidates, SearchByBoW, GP3P RANSAC,
+     pose LM) that recovers, frame 41 on the "reloc_recent" path, the ATE
+     over all 43 frames at most 5 cm; (b), run first, frame 20's images
+     again under a forced relocalization (a kidnap), recovered within 5 cm
+     and 1 degree of the pose phase 6 tracked there; (d), run second, the
+     same kidnap with the tracker's BoW hooks unset, as in a system built
+     with enable_loop_closing=False: the recent keyframes matched by a
+     window search over the whole image, to the same bar; (c)
+     tests/test_full_slam.py's second-chance round: 16 BoW triples, half
+     corrupted, defeat the single-pass fit, and the projection round
+     (reloc_projection_match) recovers, alone too;
+  8. loop closing on the card, on the same map, at the bars of
+     tests/test_loop_closing.py: SearchByBoW between the first two
+     keyframes (>= 15 pairs, > 60% the same landmark); ComputeSim3 between
+     them (Sim3 RANSAC, OptimizeSim3, the guided SearchBySim3 round, the
+     neighbourhood support) near their own relative pose; the guided round
+     adding inliers to a starved seed set; CorrectLoop on an injected
+     drift, exact with the essential graph neutralized and improving every
+     keyframe with it, then once through the system's own loop closer
+     (SearchAndFuse on); the 14-keyframe out-and-back chain; global
+     bundle adjustment taking 3 cm of point noise at least halfway back.
+     The map is restored after each step.
 
-For each call site (phases 4 and 6) the script times, on the card: the
+Each of phases 6, 7 and 8 sets the launch counts to 0 just before it
+drives its path and reads them just after. For each call site (phases 4,
+6, 7 and 8) the script times, on the card: the
 entry's device time per launch (CUDA-graph replay, so no host enqueue in
 it), one call between two events as earlier versions timed (host enqueue
 included), the plain version, and at the window-gated sites the path the
 site ran before the in-kernel gate (the torch gate build plus the
 dense-gate entry). It computes each site's bound from the inputs (bytes
 over 3.35 TB/s, float operations over 67 TFLOP/s, popcounts over 16 per
-clock per SM at 1.98 GHz on 132 SMs) and its gate density.
+clock per SM at 1.98 GHz on 132 SMs) and its gate density. Phases 7 and 8
+also print the time of a relocalization, of the ComputeSim3 stage (its
+first, cold call and the warm ones, each split into its stages and the
+forward-mode Jacobians inside OptimizeSim3), of CorrectLoop, of the
+essential-graph optimization (its edge Jacobians apart) and of the
+vocabulary transform.
 
 Prints the card line, a JSON line of the kernels (one entry per call
 site), and last {"ok": true, "device": {...}}. Without a GPU it exits
@@ -58,6 +91,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -78,14 +112,31 @@ SYS_INIT_BY = 20       # it must initialize within this many frames
 SYS_WORKING_FRAC = 0.9
 SYS_MIN_KFS = 3
 SYS_MAX_ATE = 0.05     # m, Sim3-aligned
-# the kernel's call sites: the function on the call stack that names each
+RELOC_FRAMES = 3       # frames after the system run, the first relocalized (phase 7)
+KIDNAP_FRAME = 20      # the frame fed again under a forced relocalization
+DRIFT = [0.01, -0.01, 0.02, 0.05, 0.08, -0.05, 0.0]   # tests/test_loop_closing.py
+# the kernel's call sites: the innermost function on the call stack that
+# names each (the mapper's fuse under CorrectLoop is "loop_fuse")
 SITES = {"search_for_initialization": "init", "_track_previous_frame": "window_search",
          "_motion_track_core": "motion", "_local_map_core": "local_map",
          "triangulation_batch": "triangulation", "cross_camera_batch": "cross_camera",
-         "fuse_targets_batch": "fuse"}
-SYS_SITES = {"init": "radius", "init_mutual": "radius", "window_search": "radius",
+         "fuse_targets_batch": "fuse", "_reloc_matches": "reloc_window",
+         "bow_match_frame": "reloc_bow", "_reloc_project_candidate": "reloc_projection",
+         "_matched_point_pairs": "loop_bow", "_guided_sim3_pairs": "guided_sim3",
+         "_count_neighborhood_support": "support"}
+SITE_KIND = {"init": "radius", "init_mutual": "radius", "window_search": "radius",
              "motion": "radius", "local_map": "radius", "triangulation": "dense",
-             "cross_camera": "dense", "fuse": "radius"}
+             "cross_camera": "dense", "fuse": "radius", "reloc_window": "radius",
+             "reloc_bow": "radius", "reloc_projection": "radius", "loop_bow": "radius",
+             "guided_sim3": "radius", "support": "radius", "loop_fuse": "radius"}
+# the sites each phase's path must launch
+SYS_SITES = ("init", "init_mutual", "window_search", "motion", "local_map",
+             "triangulation", "cross_camera", "fuse")
+RELOC_SITES = ("reloc_bow", "reloc_projection", "reloc_window")
+LOOP_SITES = ("loop_bow", "guided_sim3", "support", "loop_fuse")
+# the stages of a ComputeSim3 call timed apart (phase 8); "its_jacobians"
+# is the forward-mode Jacobian time inside optimize_sim3
+SIM3_STAGES = ("draws", "horn", "score", "optimize_sim3", "its_jacobians", "guided", "support")
 ENTRY = {"radius": "hamming_nn_radius", "dense": "hamming_nn"}
 SOURCE = "multicol_slam_tpu_torch/csrc/hamming_nn.cu"
 REPLACES = "multicol_slam_tpu/ops/pallas/hamming_nn.py:146"
@@ -298,12 +349,15 @@ class SiteSpy:
 
 def call_site() -> str:
     """The call site of the current Hamming-NN call."""
+    names = []
     f = sys._getframe(2)
     while f is not None:
-        if f.f_code.co_name in SITES:
-            return SITES[f.f_code.co_name]
+        names.append(f.f_code.co_name)
         f = f.f_back
-    fail("a Hamming-NN entry was called from an unknown call site")
+    site = next((SITES[n] for n in names if n in SITES), None)
+    if site is None:
+        fail("a Hamming-NN entry was called from an unknown call site")
+    return "loop_fuse" if site == "fuse" and "_correct_loop" in names else site
 
 
 def reset_launches(knn):
@@ -356,46 +410,110 @@ def percentiles(xs):
             f"(n={len(xs)})") if xs else "none"
 
 
+def check_launches(knn, spy, sites, card):
+    """The launches of a phase's path: each entry's count equals the sum
+    over its call sites, and every site of ``sites`` launched. Returns the
+    sites' kernel JSON entries (compared, timed and bounded)."""
+    launches = {k: getattr(knn, ENTRY[k]).launches for k in ENTRY}
+    for kind in ENTRY:
+        by_site = sum(n for s, n in spy.launches.items() if SITE_KIND[s] == kind)
+        if by_site != launches[kind]:
+            fail(f"call-site launches {dict(spy.launches)} do not add up to "
+                 f"{ENTRY[kind]}'s {launches[kind]}")
+    print(f"launches {launches} by call site: {dict(spy.launches)}")
+    entries = []
+    for site in sites:
+        if not spy.launches[site]:
+            fail(f"the kernel was not launched at call site {site}")
+        got_kind, args = spy.args[site]
+        if got_kind != SITE_KIND[site]:
+            fail(f"call site {site} used {ENTRY[got_kind]}, want {ENTRY[SITE_KIND[site]]}")
+        entries.append(site_entry(knn, site, got_kind, args, spy.launches[site], card))
+    return entries
+
+
+def timed(fn):
+    """(fn(), host ms around it, ending in a device sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class StageClock:
+    """Host ms (each call ended by a device sync) spent in named functions
+    while the clock is entered. A target is (owner, attribute, label) or,
+    for a function that returns the function to time (``jacfwd``),
+    (owner, attribute, label, True). A stage's time includes the stages
+    it calls."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.ms = Counter()
+
+    def _timed(self, f, label):
+        def stage(*a, **k):
+            out, ms = timed(lambda: f(*a, **k))
+            self.ms[label] += ms
+            return out
+        return stage
+
+    def __enter__(self):
+        self.saved = []
+        for owner, attr, label, *factory in self.targets:
+            f = getattr(owner, attr)
+            self.saved.append((owner, attr, f, attr in vars(owner)))
+            g = (lambda *a, _f=f, _l=label, **k: self._timed(_f(*a, **k), _l)) if factory \
+                else self._timed(f, label)
+            setattr(owner, attr, g)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, f, own in reversed(self.saved):
+            if own:
+                setattr(owner, attr, f)
+            else:
+                delattr(owner, attr)
+
+    def line(self, labels):
+        return ", ".join(f"{lb} {self.ms[lb]:.3f}" for lb in labels)
+
+
 def system_phase(dev, knn, card):
-    """Phase 6: MultiColSLAM.track from the first frame. Returns the kernel
-    JSON entries of the system path's call sites."""
+    """Phase 6: MultiColSLAM.track from the first frame. Returns (the
+    system, the frames and ground truth of all three system phases, the
+    pose returned at each frame, the kernel JSON entries of the system
+    path's call sites)."""
     from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models.loop_closing import MIN_KFS_BETWEEN_LOOPS
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
     from multicol_slam_tpu_torch.models.tracking import TrackState
     from multicol_slam_tpu_torch.utils import config_io, synthetic
     from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
 
-    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, enable_loop_closing=False)
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR)
     if slam.rig.M_c.device != dev:
         fail(f"MultiColSLAM with no device runs on {slam.rig.M_c.device}, not {dev}")
-    gt = synthetic.bench_trajectory(SYS_FRAMES)
+    gt = synthetic.bench_trajectory(SYS_FRAMES + RELOC_FRAMES)
     render = synthetic.make_renderer(slam.rig)
     frames = torch.round(render(torch.tensor(gt, dtype=torch.float32, device=dev)))
     frames = frames.to(torch.uint8)
 
     # the main path, counted: every launch goes through the wrappers; the
     # spy names its call site and keeps each site's first inputs
-    kinds, times, init_frame = [], [], None
+    kinds, times, init_frame, returned = [], [], None, {}
     reset_launches(knn)
     with SiteSpy(knn, matcher) as spy:
         for i in range(SYS_FRAMES):
             was_working = slam.state == TrackState.WORKING
             n_passes = len(slam.mapping_ms)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            M = slam.track(frames[i], i / 25.0)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            if M is not None and init_frame is None:
+            returned[i], ms = timed(lambda: slam.track(frames[i], i / 25.0))
+            times.append(ms)
+            if returned[i] is not None and init_frame is None:
                 init_frame = i
             kinds.append("init" if not was_working else
                          "keyframe" if len(slam.mapping_ms) > n_passes else "working")
-    launches = {k: getattr(knn, ENTRY[k]).launches for k in ENTRY}
-    for kind in ENTRY:
-        by_site = sum(n for s, n in spy.launches.items() if SYS_SITES.get(s) == kind)
-        if by_site != launches[kind]:
-            fail(f"call-site launches {dict(spy.launches)} do not add up to "
-                 f"{ENTRY[kind]}'s {launches[kind]}")
 
     tr = slam.tracker
     m = slam.map
@@ -415,7 +533,7 @@ def system_phase(dev, knn, card):
     if not np.isfinite(poses).all():
         fail("non-finite poses")
     k = len(poses)
-    ate = ate_rmse(poses[:, :3, 3], gt[SYS_FRAMES - k:, :3, 3])
+    ate = ate_rmse(poses[:, :3, 3], gt[SYS_FRAMES - k:SYS_FRAMES, :3, 3])
     print(f"system ATE (Sim3-aligned, {k} frames) {ate:.5f} m")
     if ate > SYS_MAX_ATE:
         fail(f"ATE {ate:.4f} m above {SYS_MAX_ATE} m")
@@ -424,17 +542,465 @@ def system_phase(dev, knn, card):
         print(f"system frame ms, {kind}: {percentiles(xs)} ({card})")
     print(f"system mapping_ms per pass: "
           f"{[round(x, 3) for x in slam.mapping_ms]} ({card})")
-    print(f"system launches {launches} by call site: {dict(spy.launches)}")
 
-    entries = []
-    for site, kind in SYS_SITES.items():
-        if not spy.launches[site]:
-            fail(f"the kernel was not launched at call site {site}")
-        got_kind, args = spy.args[site]
-        if got_kind != kind:
-            fail(f"call site {site} used {ENTRY[got_kind]}, want {ENTRY[kind]}")
-        entries.append(site_entry(knn, site, kind, args, spy.launches[site], card))
-    return entries
+    # loop closing: built with the first keyframe, a vocabulary trained
+    # from it, every keyframe in the database, no loop on this path
+    lc = slam.loop_closer
+    if lc is None or slam._vocabulary_path is not None or lc.voc.n_words < 100:
+        fail("the system built no loop closer with a trained vocabulary")
+    kfs = sorted(m.keyframe_ids().tolist())
+    if sorted(lc.db.kf_bow) != kfs:
+        fail(f"keyframe database {sorted(lc.db.kf_bow)}, keyframes {kfs}")
+    if lc.last_loop_kf != -MIN_KFS_BETWEEN_LOOPS or any(m.kf_loop_edges[k] for k in kfs):
+        fail("a loop fired on a loop-free trajectory")
+    print(f"system loop closer: vocabulary of {lc.voc.n_words} words (k={lc.voc.k}, "
+          f"{lc.voc.levels} levels), keyframe database {kfs}, no loop")
+    return slam, frames, gt, returned, check_launches(knn, spy, SYS_SITES, card)
+
+
+def reloc_phase(knn, card, slam, frames, gt, poses):
+    """Phase 7: relocalization on the card. Returns the kernel JSON entries
+    of its call sites."""
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.ops import ransac, se3_np
+    from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
+
+    tr, m = slam.tracker, slam.map
+    calls, cands, reloc_ms = Counter(), [], []
+    orig = {"gpnp": ransac.ransac_gpnp, "cands": tr.reloc_candidates_fn}
+
+    def gpnp(*a, **k):
+        calls["ransac_gpnp"] += 1
+        return orig["gpnp"](*a, **k)
+
+    def candidates(feats):
+        cands.append(orig["cands"](feats))
+        return cands[-1]
+
+    def optimize(*a, _f=tr._optimize_current_pose):
+        calls["pose_lm"] += 1
+        return _f(*a)
+
+    def relocalize(_f=tr._relocalize):
+        ok, ms = timed(_f)
+        reloc_ms.append(ms)
+        return ok
+
+    ransac.ransac_gpnp = gpnp
+    tr.reloc_candidates_fn = candidates
+    tr._optimize_current_pose = optimize
+    tr._relocalize = relocalize
+    reset_launches(knn)
+    try:
+        with SiteSpy(knn, matcher) as spy:
+            # (b) a kidnap: frame KIDNAP_FRAME's images again, first, while
+            # the map is phase 6's (a relocalized frame can become a
+            # keyframe, and its local BA moves the map)
+            before = {k: se3_np.cayley2hom(m.kf_pose[k]) for k in m.keyframe_ids()}
+            tr.force_reloc = True
+            t = SYS_FRAMES / 25.0
+            M, ms = timed(lambda: slam.track(frames[KIDNAP_FRAME], t))
+            d_t, d_r = pose_errors_hom(M, poses[KIDNAP_FRAME]) if M is not None else (None, None)
+            print(f"reloc (b): kidnapped to frame {KIDNAP_FRAME}: path {tr.frame_path[-1]}, "
+                  f"pose against phase 6's {d_t} m {d_r} deg, frame ms {ms:.3f}, "
+                  f"{keyframes_moved(m, before)} ({card})")
+            if tr.frame_path[-1] != "reloc" or M is None or d_t > MAX_T_ERR or d_r > MAX_R_ERR:
+                fail("the kidnapped frame did not relocalize within "
+                     f"{MAX_T_ERR} m / {MAX_R_ERR} deg")
+
+            # (d) the kidnap again with the BoW hooks unset, the path of a
+            # system built with enable_loop_closing=False: the ten most
+            # recent keyframes matched by a window search over the image
+            hooks = tr.reloc_candidates_fn, tr.reloc_bow_match_fn
+            tr.reloc_candidates_fn = tr.reloc_bow_match_fn = None
+            tr.force_reloc = True
+            try:
+                M, ms = timed(lambda: slam.track(frames[KIDNAP_FRAME], t + 0.5 / 25.0))
+            finally:
+                tr.reloc_candidates_fn, tr.reloc_bow_match_fn = hooks
+            d_t, d_r = pose_errors_hom(M, poses[KIDNAP_FRAME]) if M is not None else (None, None)
+            print(f"reloc (d): kidnapped to frame {KIDNAP_FRAME} with no BoW hooks: path "
+                  f"{tr.frame_path[-1]}, pose against phase 6's {d_t} m {d_r} deg, "
+                  f"reloc_window launches {spy.launches['reloc_window']}, frame ms {ms:.3f} "
+                  f"({card})")
+            if tr.frame_path[-1] != "reloc" or M is None or d_t > MAX_T_ERR \
+                    or d_r > MAX_R_ERR or not spy.launches["reloc_window"]:
+                fail("with no BoW hooks the kidnapped frame did not relocalize within "
+                     f"{MAX_T_ERR} m / {MAX_R_ERR} deg through the window search")
+
+            # (a) a forced relocalization on the next frames
+            tr.force_reloc = True
+            frame_ms = []
+            for i in range(SYS_FRAMES, SYS_FRAMES + RELOC_FRAMES):
+                poses[i], ms = timed(lambda: slam.track(frames[i], (i + 1) / 25.0))
+                frame_ms.append(ms)
+            paths = tr.frame_path[-RELOC_FRAMES:]
+            print(f"reloc (a): frame paths {paths}, BoW candidates {cands}, "
+                  f"{dict(calls)}, frame ms {[round(x, 3) for x in frame_ms]}, "
+                  f"{keyframes_moved(m, before)} ({card})")
+            if paths[:2] != ["reloc", "reloc_recent"] or tr.force_reloc:
+                fail(f"forced relocalization took the paths {paths}")
+            if len(cands) < 2 or not cands[1] or not calls["ransac_gpnp"] or not calls["pose_lm"] \
+                    or not spy.launches["reloc_bow"]:
+                fail("the relocalization skipped BoW candidates, SearchByBoW, GP3P "
+                     "RANSAC or the pose LM")
+            tracked = [i for i in sorted(poses) if poses[i] is not None]
+            if any(poses[i] is None for i in range(SYS_FRAMES, SYS_FRAMES + RELOC_FRAMES)):
+                fail("a frame after the forced relocalization was lost")
+            ate = ate_rmse(np.stack([poses[i][:3, 3] for i in tracked]), gt[tracked, :3, 3])
+            print(f"reloc (a): ATE (Sim3-aligned, {len(tracked)} frames) {ate:.5f} m")
+            if ate > SYS_MAX_ATE:
+                fail(f"ATE {ate:.4f} m above {SYS_MAX_ATE} m after the relocalization")
+
+            # (c) the second-chance round on a weak match set
+            n_proj = spy.launches["reloc_projection"]
+            single, full, proj_only = second_chance(tr, m)
+            print(f"reloc (c): single pass {single}, second chance {full}, projection "
+                  f"round alone {proj_only}, reloc_projection launches "
+                  f"{spy.launches['reloc_projection'] - n_proj}")
+            if single or not full or not proj_only \
+                    or spy.launches["reloc_projection"] == n_proj:
+                fail("the second-chance round did not recover the weak match set "
+                     "through the projection search")
+    finally:
+        ransac.ransac_gpnp = orig["gpnp"]
+        tr.reloc_candidates_fn = orig["cands"]
+        del tr._optimize_current_pose, tr._relocalize
+    print(f"relocalization ms (_relocalize, host clock to a device sync): "
+          f"{[round(x, 3) for x in reloc_ms]}, median {statistics.median(reloc_ms):.3f} "
+          f"({card})")
+    return check_launches(knn, spy, RELOC_SITES, card)
+
+
+def map_state(m):
+    """A deep copy of a MapStore's state, its callbacks left out; restore
+    it with ``vars(m).update(copy.deepcopy(state))``."""
+    return copy.deepcopy({k: v for k, v in vars(m).items() if not callable(v)})
+
+
+def loop_phase(knn, card, slam):
+    """Phase 8: loop closing on the card on the system's map, at the bars
+    of tests/test_loop_closing.py, the map restored after each step.
+    Returns the kernel JSON entries of its call sites."""
+    from multicol_slam_tpu_torch.models import loop_closing as lcm
+    from multicol_slam_tpu_torch.models import matcher, sim3_opt
+    from multicol_slam_tpu_torch.models import vocabulary as tv
+    from multicol_slam_tpu_torch.models.keyframe_database import KeyFrameDatabase
+    from multicol_slam_tpu_torch.ops import se3_np
+    from multicol_slam_tpu_torch.ops import sim3 as s3
+
+    m, lc = slam.map, slam.loop_closer
+    dev = lc.dev
+    state = map_state(m)
+    restore = lambda: vars(m).update(copy.deepcopy(state))
+    kfs = m.keyframe_ids().tolist()
+    kf1, kf2 = kfs[0], kfs[1]
+    M = {k: se3_np.cayley2hom(m.kf_pose[k]) for k in kfs}
+    T12 = np.linalg.inv(M[kf1]) @ M[kf2]              # kf2 body -> kf1 body
+    sim3_dev = lambda T: s3.sim3_from_se3(torch.tensor(T, dtype=torch.float32, device=dev))
+
+    # the vocabulary transform of one keyframe's 2400 slots
+    f = m.kf_features[kf1]
+    desc, valid = f.desc.reshape(-1, f.desc.shape[-1]), f.valid.reshape(-1)
+    voc_fn = lambda: tv.transform_words(lc.voc, desc, valid, levelsup=lc.voc.levels - 1)
+    print(f"transform_words, {tuple(desc.shape)} descriptors, {lc.voc.n_words} words: device "
+          f"{device_ms(voc_fn):.4f} ms, one call {cuda_ms(voc_fn):.4f} ms ({card})")
+
+    graph_ms, sim3_ms, correct_ms = [], [], []
+    sim3_stages = [(lcm, "sample_sim3_sets", "draws"), (lcm, "horn_alignment", "horn"),
+                   (sim3_opt, "sim3_chi2", "score"), (sim3_opt, "optimize_sim3", "optimize_sim3"),
+                   (sim3_opt, "jacfwd", "its_jacobians", True),
+                   (lc, "_guided_sim3_pairs", "guided"),
+                   (lc, "_count_neighborhood_support", "support")]
+    graph_jac_ms = []
+    optimize_graph = sim3_opt.optimize_essential_graph
+
+    def timed_graph(*a, **k):
+        with StageClock((sim3_opt, "_edge_jacobians", "edge_jacobians")) as clock:
+            out, ms = timed(lambda: optimize_graph(*a, **k))
+        graph_ms.append(ms)
+        graph_jac_ms.append(clock.ms["edge_jacobians"])
+        return out
+
+    reset_launches(knn)
+    sim3_opt.optimize_essential_graph = timed_graph
+    try:
+        with SiteSpy(knn, matcher) as spy:
+            # SearchByBoW between the first two keyframes
+            pairs = lc._matched_point_pairs(kf1, kf2)
+            same = sum(p[0] == p[1] for p in pairs)
+            print(f"loop: SearchByBoW keyframes {kf1}-{kf2}: {len(pairs)} pairs, {same} "
+                  f"the same landmark")
+            if len(pairs) < lcm.MIN_BOW_MATCHES or same <= 0.6 * len(pairs):
+                fail("SearchByBoW between the first two keyframes: want >= "
+                     f"{lcm.MIN_BOW_MATCHES} pairs, > 60% the same landmark")
+
+            # the process's first forward-mode Jacobian on the card, on a
+            # tiny function apart from the Sim3 code, cold and then warm
+            v = torch.linspace(0.1, 0.7, 7, device=dev)
+            tiny = lambda: torch.func.jacfwd(lambda x: torch.sin(x * x).sum(0, keepdim=True))(v)
+            (_, cold), (_, warm) = timed(tiny), timed(tiny)
+            print(f"loop: first torch.func.jacfwd on the card, 7 -> 1: cold {cold:.3f} ms, "
+                  f"warm {warm:.3f} ms ({card})")
+            # ComputeSim3 between them: near their own relative pose. The
+            # first call is the process's first use of the Sim3 code; each
+            # call is split into its stages
+            for i in range(3):
+                with StageClock(*sim3_stages) as clock:
+                    S12, ms = timed(lambda: lc._compute_sim3(kf1, kf2, pairs))
+                sim3_ms.append(ms)
+                print(f"loop: _compute_sim3 call {i + 1}{' (cold)' if i == 0 else ''}: "
+                      f"{ms:.3f} ms; stages ms: {clock.line(SIM3_STAGES)} ({card})")
+            if S12 is None:
+                fail("ComputeSim3 between the first two keyframes failed a gate")
+            s, R = float(S12.s), S12.R.double().cpu().numpy()
+            print(f"loop: ComputeSim3 s {s:.6f}, |R - R12| {np.abs(R - T12[:3, :3]).max():.2e}, "
+                  f"ms {[round(x, 3) for x in sim3_ms]} ({card})")
+            if abs(s - 1.0) > 0.05 or np.abs(R - T12[:3, :3]).max() > 0.05:
+                fail("ComputeSim3 between adjacent keyframes is not near their relative pose")
+            n_support, ms = timed(lambda: lc._count_neighborhood_support(kf1, kf2, S12))
+            print(f"loop: neighbourhood support {n_support} matches, {ms:.3f} ms ({card})")
+
+            guided_round(lc, slam.rig, kf1, kf2, pairs, T12)
+
+            # CorrectLoop on an injected drift, with the essential graph
+            # neutralized (exact) and with it (every keyframe improves),
+            # through a closer built as the JAX tests build theirs
+            closer = lcm.LoopCloser(slam.rig, m, lc.voc, KeyFrameDatabase(), slam._loop_params,
+                                    scale_factor=lc.scale_factor, n_levels=lc.n_levels)
+            sim3_opt.optimize_essential_graph = lambda logs, graph, iters=20, fix_scale=True: logs
+            eb, ea, pb, pa = drift_and_correct(closer, m, kfs, sim3_dev)
+            restore()
+            print(f"loop: CorrectLoop, graph neutralized: pose error after "
+                  f"{max(ea.values()):.2e} (before {max(eb.values()):.4f}), point error "
+                  f"{pa:.2e} (before {pb:.4f})")
+            if max(ea.values()) >= 1e-4 or pa >= 1e-3:
+                fail("CorrectLoop did not restore the drifted map exactly")
+            sim3_opt.optimize_essential_graph = timed_graph
+            eb, ea, pb, pa = drift_and_correct(closer, m, kfs, sim3_dev)
+            restore()
+            print("loop: CorrectLoop with the graph, pose error before/after per keyframe "
+                  + ", ".join(f"{k}: {eb[k]:.4f}/{ea[k]:.4f}" for k in kfs[1:]))
+            if any(ea[k] >= eb[k] for k in kfs[1:]) or ea[kfs[-1]] >= 0.95 * eb[kfs[-1]]:
+                fail("CorrectLoop with the essential graph did not improve every keyframe")
+            # once through the system's own closer: SearchAndFuse on
+            _, _, _, _ = drift_and_correct(lc, m, kfs, sim3_dev, correct_ms)
+            restore()
+
+            chain_graph(slam.rig, lc, sim3_dev)
+
+            global_ba_repairs(slam, m, restore, card)
+    finally:
+        sim3_opt.optimize_essential_graph = optimize_graph
+        restore()
+    print(f"loop: _compute_sim3 ms median {statistics.median(sim3_ms):.3f}, _correct_loop ms "
+          f"{[round(x, 3) for x in correct_ms]}, optimize_essential_graph ms "
+          f"{[round(x, 3) for x in graph_ms]}, of which edge Jacobians "
+          f"{[round(x, 3) for x in graph_jac_ms]} ({card})")
+    return check_launches(knn, spy, LOOP_SITES, card)
+
+
+def guided_round(lc, rig, kf1, kf2, pairs, T12):
+    """tests/test_loop_closing.py's guided SearchBySim3 round: a seed of
+    every third BoW pair, its OptimizeSim3, then the guided pairs must add
+    inliers, their reverse measurements p2's own observations, most of
+    them within the chi2 gate at the true transform."""
+    from multicol_slam_tpu_torch.models import sim3_opt
+    from multicol_slam_tpu_torch.ops import sim3 as s3
+
+    def obs_of(ps):
+        return lc._make_sim3_obs(kf1, kf2, ps, lc._body_frame_points(kf1, [p[0] for p in ps]),
+                                 lc._body_frame_points(kf2, [p[1] for p in ps]))
+
+    seed = pairs[::3]
+    obs = obs_of(seed)
+    S0 = s3.horn_alignment(obs.X1, obs.X2, fix_scale=lc.fix_scale)
+    S12, _, n_in = sim3_opt.optimize_sim3(rig, S0, obs, iters=10, fix_scale=lc.fix_scale)
+    extra = lc._guided_sim3_pairs(kf1, kf2, S12, {(a, b) for a, b, *_ in seed})
+    own = all((kf2, c2, s2) in lc.map.pt_obs[p2] for _, p2, _, _, c2, s2 in extra)
+    dev = obs.X1.device
+    S_true = s3.Sim3(torch.ones((), device=dev),
+                     torch.tensor(T12[:3, :3], dtype=torch.float32, device=dev),
+                     torch.tensor(T12[:3, 3], dtype=torch.float32, device=dev))
+    frac_rev = float((sim3_opt.sim3_chi2(rig, S_true, obs_of(extra))[1] <= 9.21)
+                     .float().mean()) if extra else 0.0
+    _, _, n_in2 = sim3_opt.optimize_sim3(rig, S12, obs_of(seed + extra), iters=10,
+                                         fix_scale=lc.fix_scale)
+    print(f"loop: guided round: seed {len(seed)} pairs, {int(n_in)} inliers; {len(extra)} "
+          f"guided pairs, own reverse observations {own}, {frac_rev:.2f} within the gate at "
+          f"the true transform; {int(n_in2)} inliers after")
+    if int(n_in) < 3 or len(extra) < 3 or not own or frac_rev <= 0.5 \
+            or int(n_in2) <= int(n_in):
+        fail("the guided SearchBySim3 round added no inliers")
+
+
+def global_ba_repairs(slam, m, restore, card):
+    """tests/test_loop_closing.py's global-BA bar on the system's map (off
+    the default path: the loop closer runs none after a loop): the map
+    first brought to the global-BA optimum, every point then moved 3 cm,
+    and ``MultiColSLAM.global_bundle_adjustment`` must take the points at
+    least halfway back, keyframe 0 unmoved."""
+    slam.global_bundle_adjustment(iters=10)
+    kf0 = int(m.keyframe_ids()[0])
+    pose0 = m.kf_pose[kf0].copy()
+    pts = np.nonzero(m.pt_valid)[0]
+    opt = m.pt_pos[pts].copy()
+    noise = np.random.default_rng(7).standard_normal(opt.shape)
+    noise *= 0.03 / np.linalg.norm(noise, axis=1, keepdims=True)
+    m.pt_pos[pts] = (opt + noise).astype(np.float32)
+    cost, ms = timed(lambda: slam.global_bundle_adjustment(iters=10))
+    err = float(np.linalg.norm(m.pt_pos[pts] - opt, axis=1).mean())
+    moved = not np.array_equal(m.kf_pose[kf0], pose0)
+    restore()
+    print(f"loop: global_bundle_adjustment, 10 iterations, {len(pts)} points moved 3 cm: "
+          f"mean error after {err:.2e} m, chi2 {cost:.3f}, {ms:.3f} ms ({card})")
+    if not np.isfinite(cost) or err >= 0.015 or moved:
+        fail("global bundle adjustment did not repair the perturbed points")
+
+
+def drift_and_correct(closer, m, kfs, sim3_dev, correct_ms=None):
+    """tests/test_loop_closing.py's drift: every keyframe but the first
+    misplaced as S_k o D and every point by D^-1, then CorrectLoop between
+    the last and the first keyframe at their true relative pose. Returns
+    (pose error before, after, by keyframe; mean point error before,
+    after). The caller restores the map."""
+    from multicol_slam_tpu_torch.ops import se3_np
+    from multicol_slam_tpu_torch.ops import sim3 as s3
+
+    kf_new, kf_old = kfs[-1], kfs[0]
+    true = {k: se3_np.cayley2hom(m.kf_pose[k]) for k in kfs}
+    pts = np.unique(np.concatenate([m.kf_pt[k][m.kf_pt[k] >= 0] for k in kfs]))
+    pts = pts[m.pt_valid[pts]]
+    pt_true = m.pt_pos[pts].copy()
+    D = s3.sim3_exp(torch.tensor(DRIFT, dtype=torch.float64))
+    for k in kfs[1:]:
+        S_k = s3.sim3_from_se3(torch.from_numpy(np.linalg.inv(true[k]))).compose(D)
+        m.kf_pose[k] = se3_np.hom2cayley(np.linalg.inv(S_k.to_se3().numpy()))
+    m.pt_pos[pts] = D.inverse().apply(torch.from_numpy(pt_true.astype(np.float64))
+                                      ).numpy().astype(np.float32)
+
+    def kf_err(k):
+        return np.linalg.norm(np.linalg.inv(se3_np.cayley2hom(m.kf_pose[k]))
+                              - np.linalg.inv(true[k]))
+
+    eb = {k: kf_err(k) for k in kfs[1:]}
+    pb = float(np.linalg.norm(m.pt_pos[pts] - pt_true, axis=1).mean())
+    S12 = sim3_dev(np.linalg.inv(true[kf_new]) @ true[kf_old])
+    _, ms = timed(lambda: closer._correct_loop(kf_new, kf_old, S12))
+    if correct_ms is not None:
+        correct_ms.append(ms)
+    ea = {k: kf_err(k) for k in kfs[1:]}
+    pa = float(np.linalg.norm(m.pt_pos[pts] - pt_true, axis=1).mean())
+    if not all(np.isfinite(m.kf_pose[k]).all() for k in kfs):
+        fail("CorrectLoop left non-finite poses")
+    return eb, ea, pb, pa
+
+
+def chain_graph(rig, lc, sim3_dev):
+    """tests/test_loop_closing.py's 14-keyframe out-and-back chain: drift
+    accumulated along the chain, the loop closed between the last and the
+    first keyframe; the essential graph must repair the middle keyframe 3x,
+    the mean 5x and the points 3x."""
+    from multicol_slam_tpu_torch.models import loop_closing as lcm
+    from multicol_slam_tpu_torch.models.keyframe_database import KeyFrameDatabase
+    from multicol_slam_tpu_torch.models.map import MapStore
+    from multicol_slam_tpu_torch.ops import se3_np
+
+    N, G = 14, 30
+    rng = np.random.default_rng(11)
+    M_true = np.tile(np.eye(4), (N, 1, 1))
+    half = N // 2
+    xs = np.concatenate([np.arange(half) * 0.4, (half - 1 - np.arange(N - half)) * 0.4])
+    M_true[:, 0, 3] = xs
+    c, sn = np.cos(0.02), np.sin(0.02)
+    T_noise = np.eye(4)
+    T_noise[:3, :3] = [[c, 0, sn], [0, 1, 0], [-sn, 0, c]]
+    T_noise[:3, 3] = [0.015, -0.01, 0.02]
+    M_drift = M_true.copy()
+    for k in range(1, N):
+        M_drift[k] = M_drift[k - 1] @ np.linalg.inv(M_true[k - 1]) @ M_true[k] @ T_noise
+    m = MapStore(capacity_pts=N * G + 16, capacity_kfs=N + 2, n_cams=1, k_per_cam=2 * G + 8)
+    X_true = rng.uniform(-1.5, 1.5, (N * G, 3))
+    X_true[:, 0] += np.repeat(xs, G)
+    X_true[:, 2] += 2.0
+    for k in range(N):
+        m.alloc_keyframe(se3_np.hom2cayley(M_drift[k]), None, k)
+        if k > 0:
+            m.kf_parent[k] = k - 1
+    ids = m.alloc_points(N * G)
+    A = np.stack([M_drift[g] @ np.linalg.inv(M_true[g]) for g in range(N)])
+    for g in range(N):
+        grp = ids[g * G:(g + 1) * G]
+        m.pt_pos[grp] = (X_true[g * G:(g + 1) * G] @ A[g, :3, :3].T
+                         + A[g, :3, 3]).astype(np.float32)
+        for i, p in enumerate(grp):
+            m.add_observation(int(p), g, 0, i)
+            if g + 1 < N:
+                m.add_observation(int(p), g + 1, 0, G + i)
+    closer = lcm.LoopCloser(rig, m, lc.voc, KeyFrameDatabase(), lc.params)
+    closer._correct_loop(N - 1, 0, sim3_dev(np.linalg.inv(M_true[N - 1]) @ M_true[0]))
+    pos = np.stack([se3_np.cayley2hom(m.kf_pose[k])[:3, 3] for k in range(N)])
+    err_after = np.linalg.norm(pos - M_true[:, :3, 3], axis=1)
+    err_before = np.linalg.norm(M_drift[:, :3, 3] - M_true[:, :3, 3], axis=1)
+    X_drift = np.einsum("gij,gpj->gpi", A[:, :3, :3], X_true.reshape(N, G, 3)) \
+        + A[:, None, :3, 3]
+    pt_before = np.linalg.norm(X_drift.reshape(-1, 3) - X_true, axis=1).mean()
+    pt_after = np.linalg.norm(m.pt_pos[ids] - X_true, axis=1).mean()
+    print(f"loop: chain of {N} keyframes: mid {err_before[half]:.4f} -> {err_after[half]:.4f} "
+          f"m, mean {err_before.mean():.4f} -> {err_after.mean():.4f} m, points "
+          f"{pt_before:.4f} -> {pt_after:.4f} m")
+    if not (err_after[half] < err_before[half] / 3.0 and err_after.mean() < err_before.mean() / 5.0
+            and pt_after < pt_before / 3.0):
+        fail("the essential graph did not repair the chain")
+
+
+def keyframes_moved(m, before):
+    """How many keyframes there are now against ``before`` (keyframe ->
+    pose), and how far the ones of ``before`` have moved since."""
+    from multicol_slam_tpu_torch.ops import se3_np
+
+    moved = max(pose_errors_hom(se3_np.cayley2hom(m.kf_pose[k]), M)[0]
+                for k, M in before.items() if m.kf_valid[k])
+    return (f"keyframes {len(before)} -> {m.n_keyframes()}, the earlier ones moved up to "
+            f"{moved:.5f} m since phase 6")
+
+
+def second_chance(tr, m):
+    """tests/test_full_slam.py's second-chance round: 16 BoW triples
+    against the last keyframe's own features, every other slot corrupted.
+    Returns whether the single-pass fit, the second-chance round, and the
+    projection round alone (the widened local-map re-match off) recover."""
+    kf = int(m.keyframe_ids()[-1])
+    feats = m.kf_features[kf]
+    cams, slots = np.nonzero(m.kf_pt[kf] >= 0)
+    order = np.argsort(slots, kind="stable")
+    cams, slots = cams[order][:16], slots[order][:16]
+    K = m.kf_pt.shape[2]
+    triples = [(int(m.kf_pt[kf, c, s]), int(c), int(s) if i % 2 == 0 else int((s + 37) % K))
+               for i, (c, s) in enumerate(zip(cams, slots))]
+    fns = (tr.reloc_candidates_fn, tr.reloc_bow_match_fn)
+
+    def run(second: bool) -> bool:
+        tr.cfg.reloc_second_chance = second
+        tr.cur_feats = feats
+        tr.cur_pt = np.full_like(m.kf_pt[kf], -1)
+        tr.cur_outlier = np.zeros(tr.cur_pt.shape, bool)
+        tr.cur_mt = m.kf_pose[kf].copy()
+        tr.reloc_candidates_fn = lambda f: [kf]
+        tr.reloc_bow_match_fn = lambda k, f: triples if k == kf else []
+        try:
+            return bool(tr._relocalize())
+        finally:
+            tr.cfg.reloc_second_chance = True
+            tr.reloc_candidates_fn, tr.reloc_bow_match_fn = fns
+
+    single, full = run(False), run(True)
+    tr._track_local_map = lambda *a, **k: False
+    try:
+        proj_only = run(True)
+    finally:
+        del tr._track_local_map
+    return single, full, proj_only
 
 
 def cayley_to_hom(mt):
@@ -444,7 +1010,11 @@ def cayley_to_hom(mt):
 
 def pose_errors(mt, gt):
     """(translation m, rotation deg) of pose mt (6,) against gt (4, 4)."""
-    M = cayley_to_hom(mt)
+    return pose_errors_hom(cayley_to_hom(mt), gt)
+
+
+def pose_errors_hom(M, gt):
+    """(translation m, rotation deg) of pose M (4, 4) against gt (4, 4)."""
     t = float(np.linalg.norm(M[:3, 3] - gt[:3, 3]))
     c = (np.trace(M[:3, :3].T @ gt[:3, :3]) - 1.0) / 2.0
     return t, float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
@@ -580,9 +1150,15 @@ def main() -> None:
             fail(f"frame {b + 1}: the card's run disagrees with the CPU path")
 
     # -- 6. the system from the first frame ---------------------------------
-    sys_entries = system_phase(dev, knn, card)
+    slam, frames, gt, poses, sys_entries = system_phase(dev, knn, card)
 
-    print(json.dumps({"kernels": wf_entries + sys_entries}))
+    # -- 7. relocalization ---------------------------------------------------
+    reloc_entries = reloc_phase(knn, card, slam, frames, gt, poses)
+
+    # -- 8. loop closing -----------------------------------------------------
+    loop_entries = loop_phase(knn, card, slam)
+
+    print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

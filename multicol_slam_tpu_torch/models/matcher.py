@@ -4,17 +4,17 @@ Port of ``multicol_slam_tpu/models/matcher.py`` (reference
 cORBmatcher.cpp): ``match_frame_to_frame`` (:1990-2110),
 ``match_local_map`` (:67-166), ``window_search`` (:326-473),
 ``search_for_initialization`` (:579), ``search_for_triangulation``
-(:968-1155) and ``fuse_candidates`` (:1265-1420). Each search reduces the
-whole batch to the best and second-best gated Hamming distance per query
-in one kernel call, in place of the JAX package's per-camera ``vmap``
-over a distance matrix. The searches gated by a pixel window, a level
-window and validity hand those per-row fields to
-``kernels.hamming_nn_radius``, which builds the gate inside the kernel;
-the epipolar-gated triangulation search builds a boolean (batch, query,
-candidate) gate for ``kernels.hamming_nn``. Callers fold any leading
-batch axes (neighbour keyframes, fuse targets, camera pairs) into the
-camera axis. The relocalization search waits for the relocalization
-slice.
+(:968-1155), ``fuse_candidates`` (:1265-1420), the relocalization
+``reloc_projection_match`` (:2120-2263) and ``search_by_bow`` (:179-323,
+:885). Each search reduces the whole batch to the best and second-best
+gated Hamming distance per query in one kernel call, in place of the JAX
+package's per-camera ``vmap`` over a distance matrix. The searches gated
+by a pixel window, a level window (or a vocabulary node) and validity
+hand those per-row fields to ``kernels.hamming_nn_radius``, which builds
+the gate inside the kernel; the epipolar-gated triangulation search
+builds a boolean (batch, query, candidate) gate for
+``kernels.hamming_nn``. Callers fold any leading batch axes (neighbour
+keyframes, fuse targets, camera pairs) into the camera axis.
 """
 
 from __future__ import annotations
@@ -178,3 +178,46 @@ def fuse_candidates(feats: Features, has_point: torch.Tensor,
                        pred_level - 1, pred_level + 1, pred_ok, feats, feats.valid,
                        params)
     return _accept(*found, feats.xy.shape[1], desc_th)
+
+
+def reloc_projection_match(feats: Features, has_point: torch.Tensor,
+                           pt_desc: torch.Tensor, pt_mask: torch.Tensor,
+                           uv_pred: torch.Tensor, pred_ok: torch.Tensor,
+                           pred_level: torch.Tensor, params: MatchParams,
+                           th: float = 10.0, orb_dist: int = 100) -> torch.Tensor:
+    """SearchByProjection(F, KF, sAlreadyFound, th, ORBdist), the
+    relocalization round (cORBmatcher.cpp:2120-2263): a candidate
+    keyframe's points (P, W) projected at the refined pose (C, P, ...)
+    match the nearest FREE frame slot within th * 1.2^level px and one
+    octave either way, under the absolute descriptor gate ``orb_dist``, no
+    ratio test. Points already found are excluded through ``pred_ok``.
+    Returns (C, P) indices into the frame's slots."""
+    sf = params.scale_factor
+    radius = th * sf ** pred_level.to(torch.float32)
+    found = _radius_nn(pt_desc[None], pt_mask[None], uv_pred, radius ** 2,
+                       pred_level - 1, pred_level + 1, pred_ok, feats,
+                       feats.valid & ~has_point, params)
+    return _accept(*found, feats.xy.shape[1], orb_dist)
+
+
+def search_by_bow(q_desc: torch.Tensor, q_ok: torch.Tensor, q_node: torch.Tensor,
+                  db_desc: torch.Tensor, db_ok: torch.Tensor, db_node: torch.Tensor,
+                  params: MatchParams, nn_ratio: float = 0.75) -> torch.Tensor:
+    """SearchByBoW (cORBmatcher.cpp:179-323, :885): each query row (N, W)
+    where q_ok matches the nearest database row (M, W) where db_ok in the
+    same vocabulary node, TH_LOW, the ratio test, one winner per database
+    row. The node gate runs in the kernel's level window: both bounds of
+    a query row are its node, each database row's level is its node, and
+    every pixel distance is 0 against a radius of +inf. The distance is
+    unmasked even for mdBRIEF, as the JAX package's (loop_closing.py:267,
+    :308). Returns (N,) indices into the database rows (-1 = none)."""
+    N, M = q_desc.shape[0], db_desc.shape[0]
+    q_uv = q_desc.new_zeros((1, N, 2), dtype=torch.float32)
+    q_r2 = q_desc.new_full((1, N), float("inf"), dtype=torch.float32)
+    node = q_node.to(torch.int32).reshape(1, N).contiguous()
+    found = hamming_nn_radius(
+        q_desc.reshape(1, N, -1).contiguous(), db_desc.reshape(1, M, -1).contiguous(),
+        q_uv, q_r2, node, node, q_ok.reshape(1, N).contiguous(),
+        db_desc.new_zeros((1, M, 2), dtype=torch.float32),
+        db_node.to(torch.int32).reshape(1, M).contiguous(), db_ok.reshape(1, M).contiguous())
+    return _accept(*found, M, params.th_low, nn_ratio)[0]

@@ -11,10 +11,12 @@ M_cur (:327-338).
 The per-frame math (extraction, projection, matching, pose LM) runs on
 the device in a few batched calls of static shape, C cameras x K slots;
 the state machine, map bookkeeping and keyframe policy stay on the host,
-and each stage's outputs come back in one fetch. ``working_scan_chunk``
-is a Python loop over the frames with the same carry and stacked outputs
-as the JAX package's ``lax.scan``; the tracker's ``track_chunk`` and
-relocalization are not ported yet.
+and each stage's outputs come back in one fetch. Relocalization
+(:1125-1312) draws BoW candidates, matches them, fits GP3P RANSAC and
+the pose LM, with a projection second chance. ``working_scan_chunk`` is
+a Python loop over the frames with the same carry and stacked outputs as
+the JAX package's ``lax.scan``; the tracker's ``track_chunk`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import se3_np
+from ..ops import ransac, se3_np
 from ..ops.camera import world_to_img
 from ..ops.geometry import cayley2hom, hom2cayley, inv_se3
 from ..ops.rig import Rig, mt_mc
@@ -69,6 +71,8 @@ class TrackerConfig:
     kf_tracked_ratio: float = 0.9  # NeedNewKeyFrame ref-ratio condition
     kf_min_points: int = 50
     baseline_depth_ratio: float = 0.2  # curBaseline2MKF gate (:921)
+    # widened-window projection re-match after a weak relocalization fit
+    reloc_second_chance: bool = True
 
     @property
     def min_frames(self) -> int:
@@ -384,6 +388,7 @@ class Tracker:
 
         self.frame_id = -1
         self.last_kf_id = -1
+        self.last_reloc_frame = -1000
         self.velocity: Optional[np.ndarray] = None   # 4x4 V = M_last^-1 M_cur
 
         # current / last frame data
@@ -415,13 +420,24 @@ class Tracker:
         self.on_new_keyframe = None        # fn(kf_id)
         self.on_init_keyframes = None      # fn(kf0, kf1): sync bootstrap
         self.on_reset = None               # fn(): reset fan-out
+        self.reloc_candidates_fn = None    # fn(Features) -> [kf] (BoW)
+        self.reloc_bow_match_fn = None     # fn(kf, Features) -> [(pt, c, s)]
+        # the next frame relocalizes (the loop closer sets it after moving
+        # the map, cLoopClosing.cpp:575)
+        self.force_reloc = False
         # device-resident local-map snapshot cache, reused while the map is
         # unchanged and the vote selects the same points; the System flips
-        # map_dirty after every mapping pass and reset
+        # map_dirty after every mapping pass, loop correction and reset
         self.map_dirty = True
         self._snap_cache = None
-        # per-frame path taken (fused / fused_weak / velocity / init / ...)
+        # per-frame path taken (fused / fused_weak / velocity / reloc /
+        # reloc_recent / init / ...)
         self.frame_path: list[str] = []
+        # fault injection: fn(mt_min6, frame_id) -> mt_min6 applied after a
+        # successful track and before the keyframe decision, so keyframes
+        # and points inherit the error as they would real drift (the loop
+        # tests' drift)
+        self.perturb_pose_fn = None
 
     # ------------------------------------------------------------------
 
@@ -445,14 +461,19 @@ class Tracker:
         self.cur_outlier = np.zeros((C, K), bool)
 
         # WORKING + motion model: extraction runs inside the fused step,
-        # so decide before extracting (the gather reads last-frame state)
+        # so decide before extracting (the gather reads last-frame state).
+        # force_reloc is read once per frame, so the decision and the
+        # branch below agree
+        forced = self.force_reloc
         motion_in = None
         lm_in = None
         why = "state"
-        if self.state == TrackState.WORKING:
-            why = "velocity" if self.velocity is None else ""
-        if (self.state == TrackState.WORKING
-                and self.velocity is not None and self.cfg.use_motion_model):
+        if self.state == TrackState.WORKING and not forced:
+            why = ("velocity" if self.velocity is None else
+                   "reloc_recent" if self.frame_id < self.last_reloc_frame + 2 else "")
+        if (self.state == TrackState.WORKING and not forced
+                and self.velocity is not None and self.cfg.use_motion_model
+                and self.frame_id >= self.last_reloc_frame + 2):
             pts, has = self._gather_last_slot_points()
             if has.sum() < 20:
                 why = f"thin_carry:{int(has.sum())}"
@@ -487,7 +508,7 @@ class Tracker:
         else:
             ok = False
             fused_done = False
-            if self.state == TrackState.WORKING:
+            if self.state == TrackState.WORKING and not forced:
                 tried_fused = motion_in is not None and lm_in is not None
                 if tried_fused:
                     with self.timers.time("working_fused"):
@@ -508,6 +529,8 @@ class Tracker:
                 self.frame_path.append("reloc")
                 with self.timers.time("initial_pose_estimation"):
                     ok = self._relocalize()
+                if ok and forced == self.force_reloc:
+                    self.force_reloc = False
 
             if ok and not fused_done:
                 with self.timers.time("track_local_map"):
@@ -515,6 +538,8 @@ class Tracker:
 
             if ok:
                 self.state = TrackState.WORKING
+                if self.perturb_pose_fn is not None:
+                    self.cur_mt = np.asarray(self.perturb_pose_fn(self.cur_mt, self.frame_id))
                 if self._need_new_keyframe():
                     self._create_new_keyframe()
                 # motion model V = M_last^-1 M_cur (cTracking.cpp:327-338)
@@ -897,10 +922,14 @@ class Tracker:
         self.map_dirty = False
         return self._snap_cache
 
-    def _track_local_map(self) -> bool:
+    def _track_local_map(self, th: float | None = None,
+                         update_counters: bool = True) -> bool:
         """TrackLocalMap (:834-888): frustum check, local-map matching and
         pose LM over the frame's associations plus the new matches in one
-        device step (``local_map_track_step``), one fetch."""
+        device step (``local_map_track_step``), one fetch. ``th`` widens
+        the search window (relocalization's second chance uses 10);
+        ``update_counters=False`` leaves the visibility and found counters
+        alone, so a relocalization attempt does not skew culling."""
         snap = self._local_map_snapshot()
         if snap is None:
             return False
@@ -935,14 +964,15 @@ class Tracker:
             arrs["normal"], arrs["mind"], arrs["maxd"], self._to_dev(cand_ok),
             arrs["desc"], arrs["dmask"], self.cur_feats, slot_has_t,
             self._to_dev(slot_X), slot_has_t, self.params,
-            th=self.cfg.local_map_th,
+            th=self.cfg.local_map_th if th is None else th,
             n_levels=self.cfg.n_levels, scale_factor=self.cfg.scale_factor)
         ok, match, mt, inl_slot, inl_new, n_in, n_it = fetch(*out)
         self.lm_iters.append(int(n_it))
 
         # visibility counters (isInFrustum -> IncreaseVisible)
-        vis = ok[:, :P].any(0)
-        m.pt_visible[local_pts[vis]] += 1
+        if update_counters:
+            vis = ok[:, :P].any(0)
+            m.pt_visible[local_pts[vis]] += 1
         n_new = self._apply_local_matches(match, inl_new, local_pts, P)
         # LM outliers among the existing associations
         self.cur_outlier |= slot_has & ~inl_slot
@@ -950,10 +980,11 @@ class Tracker:
         n_in = int(n_in)
         self.inlier_ratios.append(n_in / max(int(slot_has.sum()) + n_new, 1))
         okpose = n_in >= self.cfg.min_inliers_local
-        # found counters for culling (TrackLocalMap IncreaseFound)
-        tracked = self.cur_pt[(self.cur_pt >= 0) & ~self.cur_outlier]
-        m.pt_found[tracked] += 1
-        self.n_tracked.append(len(tracked))
+        if update_counters:
+            # found counters for culling (TrackLocalMap IncreaseFound)
+            tracked = self.cur_pt[(self.cur_pt >= 0) & ~self.cur_outlier]
+            m.pt_found[tracked] += 1
+            self.n_tracked.append(len(tracked))
         return okpose
 
     # ------------------------------------------------------------------
@@ -1010,16 +1041,122 @@ class Tracker:
     # relocalization (cTracking::Relocalisation :1125-1312)
     # ------------------------------------------------------------------
 
+    def _reloc_matches(self, kf: int) -> list[tuple[int, int, int]]:
+        """(point, cam, slot) matches of the current frame against
+        keyframe kf: the vocabulary-node-gated SearchByBoW
+        (cORBmatcher.cpp:179-323) when a loop closer is wired, else a
+        window search over the whole image at TH_LOW and ratio 0.75."""
+        if self.reloc_bow_match_fn is not None:
+            return self.reloc_bow_match_fn(kf, self.cur_feats)
+        m = self.map
+        match = fetch(matcher.window_search(
+            m.kf_features[kf], self.cur_feats, self._to_dev(m.kf_pt[kf] >= 0),
+            self.params, window=1e6, nn_ratio=0.75, use_low_th=True))[0]
+        c, s = np.nonzero(match >= 0)
+        p = m.kf_pt[kf, c, s]
+        keep = p >= 0
+        return list(zip(p[keep].tolist(), c[keep].tolist(), match[c, s][keep].tolist()))
+
     def _relocalize(self) -> bool:
-        raise NotImplementedError(
-            "relocalization is not ported yet (ROADMAP queue 1, item 8: "
-            "GP3P/GPnP RANSAC, BoW candidates); the port cannot recover a "
-            "lost track once the map holds more than 3 keyframes")
+        """Relocalisation (cTracking.cpp:1125-1312): candidate keyframes
+        from the BoW database (DetectRelocalisationCandidates) plus the ten
+        most recent keyframes (BoW can alias to a similar-looking place
+        while the last keyframe overlaps the view); the candidate with the
+        most matches (>= 15) seeds GP3P RANSAC over the 2D-3D matches,
+        then the pose LM. A weak or failed fit gets a second chance: the
+        candidate's landmarks projected at the refined pose
+        (``_reloc_project_candidate``), then a widened local-map re-match."""
+        m = self.map
+        cands = self.reloc_candidates_fn(self.cur_feats) if self.reloc_candidates_fn else []
+        recent = m.keyframe_ids()[-10:].tolist()
+        best = None
+        for kf in dict.fromkeys(list(cands) + recent):
+            if m.kf_features[kf] is None:
+                continue
+            triples = self._reloc_matches(kf)
+            if len(triples) >= 15 and (best is None or len(triples) > best[0]):
+                best = (len(triples), kf, triples)
+        if best is None:
+            return False
+        _, kf, triples = best
+        for p, c, s in triples:
+            self.cur_pt[c, s] = p
+
+        # GP3P RANSAC over body-frame rays x landmark positions, then the
+        # pose LM (cTracking.cpp:1234-1266)
+        mt_init = m.kf_pose[kf]
+        cam_idx, slot_idx = np.nonzero(self.cur_pt >= 0)
+        pids = self.cur_pt[cam_idx, slot_idx]
+        alive = m.pt_valid[pids]
+        cam_idx, slot_idx, pids = cam_idx[alive], slot_idx[alive], pids[alive]
+        if len(pids) >= 6:
+            rays = fetch(self.cur_feats.ray)[0][cam_idx, slot_idx]
+            Mc = self._M_c_np
+            dirs = np.einsum("nij,nj->ni", Mc[cam_idx, :3, :3], rays)
+            cap = bucket(len(pids), 128)
+            padf = lambda a: self._to_dev(np.concatenate(
+                [a, np.zeros((cap - len(a),) + a.shape[1:], a.dtype)], 0))
+            self._dispatch_n += 1
+            T, _, n_in = fetch(*ransac.ransac_gpnp(
+                self.gen, padf(Mc[cam_idx, :3, 3]), padf(dirs),
+                padf(m.pt_pos[pids]),
+                self._to_dev(np.arange(cap) < len(pids)), n_hyps=256))
+            if int(n_in) >= max(6, int(0.4 * len(pids))):
+                mt_init = se3_np.hom2cayley(np.linalg.inv(T))
+
+        ok = self._optimize_current_pose(mt_init, 10)
+        n_assoc = int(((self.cur_pt >= 0) & ~self.cur_outlier).sum())
+        if self.cfg.reloc_second_chance and (not ok or n_assoc < 50):
+            # accept a fit at >= 10 inliers (cTracking.cpp:1284-1297)
+            if self._reloc_project_candidate(kf) > 0:
+                ok = self._optimize_current_pose(self.cur_mt, 10) or ok
+                n_assoc = int(((self.cur_pt >= 0) & ~self.cur_outlier).sum())
+            if not ok or n_assoc < 50:
+                ok = self._track_local_map(th=10.0, update_counters=False) or ok
+        if ok:
+            self.last_reloc_frame = self.frame_id
+        return ok
 
     def _reloc_project_candidate(self, kf: int) -> int:
-        raise NotImplementedError(
-            "relocalization's projection search is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+        """SearchByProjection(F, KF, sAlreadyFound, th, ORBdist), the
+        relocalization round (cORBmatcher.cpp:2120-2263): keyframe kf's
+        landmarks not yet associated, projected at the refined pose with a
+        4x distance slack (the pose was just recovered), matched into free
+        slots within 10 * 1.2^level px under the absolute ORBdist gate
+        (100 per 256 bits, 50 masked). Returns the new associations."""
+        m = self.map
+        arr = m.kf_pt[kf]
+        cand = np.unique(arr[arr >= 0])
+        cand = cand[m.pt_valid[cand]]
+        found = self.cur_pt[self.cur_pt >= 0]
+        if len(found):
+            cand = cand[~np.isin(cand, found)]
+        if len(cand) == 0:
+            return 0
+        P = len(cand)
+        cap = bucket(P, 128)
+        pad = lambda a, fill=0: self._to_dev(np.concatenate(
+            [a, np.full((cap - P,) + a.shape[1:], fill, a.dtype)], 0))
+        self._dispatch_n += 1
+        uv, ok, lvl, _ = frustum_check(
+            self.rig, self._to_dev(self.cur_mt), pad(m.pt_pos[cand]),
+            pad(m.pt_normal[cand]), pad(m.pt_min_dist[cand]),
+            pad(m.pt_max_dist[cand], 1.0), n_levels=self.cfg.n_levels,
+            scale_factor=self.cfg.scale_factor, dist_slack=4.0)
+        ok = ok & (torch.arange(cap, device=self.dev) < P)
+        orb_dist = int(round((50 if self.params.masked else 100) * self.cfg.desc_bytes / 32))
+        match = fetch(matcher.reloc_projection_match(
+            self.cur_feats, self._to_dev(self.cur_pt >= 0), pad(m.pt_desc[cand]),
+            pad(m.pt_desc_mask[cand]), uv, ok, lvl, self.params, th=10.0,
+            orb_dist=orb_dist))[0]
+        n_new = 0
+        for c in range(match.shape[0]):
+            sel = np.nonzero(match[c, :P] >= 0)[0]
+            slots = match[c, sel]
+            free = self.cur_pt[c, slots] < 0
+            self.cur_pt[c, slots[free]] = cand[sel[free]]
+            n_new += int(free.sum())
+        return n_new
 
     # ------------------------------------------------------------------
 
@@ -1032,6 +1169,7 @@ class Tracker:
         self.init_ref_feats = None
         self.last_feats = None
         self.last_kf_id = -1
+        self.force_reloc = False
         self.map_dirty = True
         self._snap_cache = None
         self.cur_pt = np.full_like(self.cur_pt, -1) \

@@ -74,6 +74,32 @@ def rot2cayley(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([-C[..., 1, 2], C[..., 0, 2], -C[..., 0, 1]], -1)
 
 
+def rodrigues2rot(w: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) -> rotation (..., 3, 3) (the exp map, with the
+    Taylor forms below 1e-8 rad)."""
+    theta2 = (w * w).sum(-1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    K = skew(w)
+    K2 = K @ K
+    big = theta2 > 1e-16
+    a = torch.where(big, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
+    b = torch.where(big, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + a[..., None, None] * K + b[..., None, None] * K2
+
+
+def rot2rodrigues(R: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) -> axis-angle (..., 3) (the log map)."""
+    tr = torch.einsum("...ii->...", R)
+    theta = torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], -1)
+    big = theta > 1e-6
+    s = torch.where(big, theta / (2.0 * torch.sin(torch.where(big, theta, torch.ones_like(theta)))),
+                    0.5 * torch.ones_like(theta))
+    return v * s[..., None]
+
+
 def _bottom_row(top: torch.Tensor) -> torch.Tensor:
     """[0 0 0 1] rows for (..., 3, 4) ``top``, made on its device (a tensor
     built from a Python list would be a host-to-device copy, which waits

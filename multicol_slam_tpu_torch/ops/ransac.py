@@ -6,9 +6,10 @@ ransac.py`` (reference: OpenGV's STEWENIUS 5-pt RANSAC,
 cMultiInitializer.cpp:131-146, threshold 1e-4): every minimal sample is
 drawn up front, every hypothesis is solved in one batch, all hypotheses
 are scored against all correspondences in one dense pass, and the winner
-is refit with the 8-point solver on its inliers. Sampling takes an
-explicit ``torch.Generator``; the generalized absolute pose (GP3P, GPnP)
-of relocalization is not ported yet.
+is refit with the 8-point solver on its inliers. The non-central
+absolute pose of relocalization (GP3P hypotheses, the GPnP DLT refit;
+reference cTracking.cpp:1234-1266) is batched the same way. Sampling
+takes an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -177,6 +178,154 @@ def ransac_essential(gen: torch.Generator, v1: torch.Tensor, v2: torch.Tensor,
     E_out = torch.where(better, E_ref, Es[best])
     inl_out = torch.where(better, inl_ref, inl[best])
     return E_out, inl_out, inl_out.sum()
+
+
+# ---------------------------------------------------------------------------
+# Non-central absolute pose (relocalization)
+# ---------------------------------------------------------------------------
+
+_PAIRS = ((0, 1), (0, 2), (1, 2))
+
+
+def gp3p(origins: torch.Tensor, dirs: torch.Tensor, X: torch.Tensor,
+         d0: torch.Tensor, iters: int = 16):
+    """Minimal 3-point generalized absolute pose by damped Newton, batched
+    over lanes (the role of OpenGV's GP3P, cTracking.cpp:1234-1266): the
+    depths d (L, 3) place q_i = o_i + d_i f_i in the body frame, and
+    rigidity gives |q_i - q_j|^2 = |X_i - X_j|^2 for the three pairs. Each
+    step solves the damped 3x3 normal equations by Cholesky, clips to
+    +-(0.5 |d| + 1) and keeps depths >= 1e-4; the body pose then follows
+    from Horn's alignment at unit scale. The Jacobian is written out: row
+    (i, j) is 2 (q_i - q_j) . f_i in column i and its negative with f_j in
+    column j.
+
+    origins, dirs, X: (L, 3, 3); d0: (L, 3). Returns (T world->body
+    (L, 4, 4), residual norm / (1 + sum |X_i - X_j|^2) (L,))."""
+    from .sim3 import horn_alignment
+
+    a = torch.tensor([p[0] for p in _PAIRS], device=X.device)
+    b = torch.tensor([p[1] for p in _PAIRS], device=X.device)
+    D2 = ((X[:, a] - X[:, b]) ** 2).sum(-1)                    # (L, 3)
+    eye = torch.eye(3, dtype=X.dtype, device=X.device)
+    sel_a = torch.nn.functional.one_hot(a, 3).to(X.dtype)        # (3 pairs, 3)
+    sel_b = torch.nn.functional.one_hot(b, 3).to(X.dtype)
+
+    def F(d):
+        q = origins + d[..., None] * dirs
+        diff = q[:, a] - q[:, b]                                 # (L, 3, 3)
+        return (diff * diff).sum(-1) - D2, diff
+
+    d = d0
+    for _ in range(iters):
+        r, diff = F(d)
+        ga = 2.0 * (diff * dirs[:, a]).sum(-1)                   # (L, 3)
+        gb = -2.0 * (diff * dirs[:, b]).sum(-1)
+        J = ga[..., None] * sel_a + gb[..., None] * sel_b        # (L, 3, 3)
+        JtJ = J.transpose(-1, -2) @ J + 1e-9 * eye
+        L = torch.linalg.cholesky_ex(JtJ)[0]
+        step = torch.cholesky_solve(J.transpose(-1, -2) @ r[..., None], L)[..., 0]
+        lim = 0.5 * torch.abs(d) + 1.0
+        step = torch.minimum(torch.maximum(step, -lim), lim)
+        d = torch.clamp(d - step, min=1e-4)
+    r, _ = F(d)
+    res = torch.linalg.norm(r, dim=-1) / (1.0 + D2.sum(-1))
+    q = origins + d[..., None] * dirs
+    # torch.linalg.eigh fails on non-finite input where XLA returns NaN: a
+    # diverged lane gets a finite pose here and a NaN residual, which
+    # ransac_gpnp rejects
+    S = horn_alignment(torch.nan_to_num(q), X, fix_scale=True)  # q = R X + t
+    top = torch.cat([S.R, S.t[..., None]], -1)
+    bottom = torch.eye(4, dtype=X.dtype, device=X.device)[3:].expand(top.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], -2), res
+
+
+def _dlt_pose(origins, dirs, X, w):
+    """The DLT shared by gpnp_dlt and _refit: rows D (R X + t) = D o with
+    D = [dirs]x scaled by w (M,), solved by the 12x12 normal equations;
+    R is projected onto SO(3) and the DLT scale moved into t."""
+    m = X.shape[0]
+    D = skew(dirs) * w[:, None, None]                           # (M, 3, 3)
+    A = torch.cat([torch.stack([D * X[:, c][:, None, None] for c in range(3)], 2)
+                   .reshape(m, 3, 9), D], 2)                     # (M, 3, 12)
+    b = torch.einsum("mij,mj->mi", D, origins)
+    Af, bf = A.reshape(-1, 12), b.reshape(-1)
+    AtA = Af.T @ Af + 1e-9 * torch.eye(12, dtype=X.dtype, device=X.device)
+    # solve_ex: a singular system gives non-finite entries, as in the JAX
+    # package, instead of an error; the SVD gets them zeroed
+    u = torch.linalg.solve_ex(AtA, Af.T @ bf)[0]
+    Rm = torch.nan_to_num(u[:9].reshape(3, 3).T, nan=0.0, posinf=0.0, neginf=0.0)
+    U, s, Vt = torch.linalg.svd(Rm)
+    det = torch.linalg.det(U @ Vt)
+    one = torch.ones((), dtype=X.dtype, device=X.device)
+    Rproj = U @ torch.diag(torch.stack([one, one, det])) @ Vt
+    scale = s.sum() / 3.0 * det
+    t = u[9:12] / torch.where(torch.abs(scale) > 1e-9, scale, one)
+    top = torch.cat([Rproj, t[:, None]], 1)
+    return torch.cat([top, torch.eye(4, dtype=X.dtype, device=X.device)[3:]], 0)
+
+
+def gpnp_dlt(origins: torch.Tensor, dirs: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Generalized-camera absolute pose from >= 6 ray / point pairs (the
+    gpnp role, cTracking.cpp:1234-1266): (R X + t - o) x d = 0 is linear in
+    the 12 entries of [R | t]. origins, dirs: (M, 3) body-frame ray origins
+    and unit directions; X: (M, 3) world points. Returns the 4x4
+    world->body SE3."""
+    return _dlt_pose(origins, dirs, X, torch.ones_like(X[:, 0]))
+
+
+def _ray_angle_err(T: torch.Tensor, origins, dirs, X) -> torch.Tensor:
+    """1 - cos of the angle between each measured ray and the direction to
+    its transformed point, T (..., 4, 4) against (N, 3) -> (..., N)."""
+    Y = torch.einsum("...ij,nj->...ni", T[..., :3, :3], X) + T[..., None, :3, 3]
+    v = Y - origins
+    v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
+    return 1.0 - (v * dirs).sum(-1)
+
+
+DEPTH_SEEDS = (0.3, 1.0, 3.0, 10.0)
+
+
+def ransac_gpnp(gen: torch.Generator, origins: torch.Tensor, dirs: torch.Tensor,
+                X: torch.Tensor, valid: torch.Tensor, *, threshold: float = 1e-4,
+                n_hyps: int = 256):
+    """Batched non-central absolute-pose RANSAC (GP3P-RANSAC, threshold
+    1e-4 on 1 - cos of the ray angle as cTracking.cpp:1256): each minimal
+    3-point sample, drawn among the valid rows, is solved from every depth
+    seed of DEPTH_SEEDS (one lane per (sample, seed), 16 Newton steps);
+    lanes whose residual stays above 1e-4 are dropped. The best-scoring
+    hypothesis (first on ties) is refit with the DLT on its inliers and
+    kept if it scores at least as well.
+
+    origins, dirs, X: (N, 3); valid (N,). Returns (T world->body (4, 4),
+    inlier mask (N,), n_inliers). The JAX package's larger-sample DLT
+    hypotheses wait for a caller."""
+    n = X.shape[0]
+    idx = sample_minimal_sets(gen, n_hyps, 3, n, valid.to(torch.float32)).to(X.device)
+    seeds = torch.tensor(DEPTH_SEEDS, dtype=X.dtype, device=X.device)
+    S = len(DEPTH_SEEDS)
+    lanes = lambda a: a[idx][:, None].expand(n_hyps, S, 3, 3).reshape(-1, 3, 3)
+    d0 = seeds[None, :, None].expand(n_hyps, S, 3).reshape(-1, 3)
+    Ts, res = gp3p(lanes(origins), lanes(dirs), lanes(X), d0)
+    eye_inf = torch.eye(4, dtype=X.dtype, device=X.device) * float("inf")
+    # unconverged lanes, NaN residuals too, score no inliers (in the JAX
+    # package a NaN lane's pose is NaN itself)
+    Ts = torch.where(~(res <= 1e-4)[:, None, None], eye_inf, Ts)
+    errs = _ray_angle_err(Ts, origins, dirs, X)                  # (L, N)
+    errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
+    inl = (errs < threshold) & valid[None, :]
+    scores = inl.sum(1)
+    best = torch.argmax(scores)
+    T_ref = _refit(origins, dirs, X, inl[best])
+    inl_ref = (_ray_angle_err(T_ref, origins, dirs, X) < threshold) & valid
+    better = inl_ref.sum() >= scores[best]
+    T_out = torch.where(better, T_ref, Ts[best])
+    inl_out = torch.where(better, inl_ref, inl[best])
+    return T_out, inl_out, inl_out.sum()
+
+
+def _refit(origins, dirs, X, inlier_mask):
+    """The DLT on the inliers only (rows weighted by the mask)."""
+    return _dlt_pose(origins, dirs, X, inlier_mask.to(X.dtype))
 
 
 def cheirality_counts(R12s: torch.Tensor, t12s: torch.Tensor, v1: torch.Tensor,

@@ -1,5 +1,6 @@
 """Converters between the JAX package's state, taken as numpy arrays, and
-this package's tensors: rigs, Features and the whole MapStore.
+this package's tensors: rigs, Features, the whole MapStore and the BoW
+vocabulary.
 
 Packed descriptor words are uint32 in the JAX package and int32 bit
 patterns in tensors here: uint32 is viewed as int32 on the way in and as
@@ -16,6 +17,7 @@ import torch
 
 from ..models.extractor import Features
 from ..models.map import MapStore
+from ..models.vocabulary import Vocabulary
 from ..ops.camera import CameraModel
 from ..ops.rig import Rig
 
@@ -108,3 +110,25 @@ def map_from_numpy(src, device=None) -> MapStore:
     m.kf_features = [None if f is None else features_from_numpy(f, device)
                      for f in get("kf_features")]
     return m
+
+
+_VOC_ARRAYS = ("centroids", "children", "word_of_node", "weights")
+_VOC_SIZES = ("k", "levels", "n_words_")
+
+
+def vocabulary_to_numpy(voc: Vocabulary) -> dict:
+    """The port's Vocabulary -> {field: value}, centroids as uint32, ready
+    for the JAX package's ``Vocabulary(**d)`` once its arrays are made JAX
+    arrays."""
+    out = {k: getattr(voc, k).detach().cpu().numpy() for k in _VOC_ARRAYS}
+    out["centroids"] = out["centroids"].view(np.uint32)
+    out.update({k: int(getattr(voc, k)) for k in _VOC_SIZES})
+    return out
+
+
+def vocabulary_from_numpy(src, device=None) -> Vocabulary:
+    """A JAX package Vocabulary (or a ``vocabulary_to_numpy`` dict) -> the
+    port's Vocabulary on ``device``; the bits of the centroids are kept."""
+    get = src.__getitem__ if isinstance(src, dict) else lambda k: getattr(src, k)
+    return Vocabulary(**{k: _tensor(get(k), device) for k in _VOC_ARRAYS},
+                      **{k: int(get(k)) for k in _VOC_SIZES})

@@ -157,7 +157,9 @@ class JaxMinimalSets:
     """Stands in for the port's ``ransac.sample_minimal_sets``: returns the
     minimal sets the JAX package draws, following the JAX Tracker's key
     stream (PRNGKey(42), split once per initialization attempt, then once
-    per camera; the port's RANSAC samples camera by camera in order)."""
+    per camera, the port's essential RANSAC sampling camera by camera in
+    order; split once per relocalization, whose GP3P RANSAC draws 3-point
+    sets with the key itself)."""
 
     def __init__(self, n_cams: int = 3, seed: int = 42):
         from multicol_slam_tpu.ops import ransac as jr
@@ -166,16 +168,20 @@ class JaxMinimalSets:
         self.key = jax.random.PRNGKey(seed)
         self.calls = 0
         self.keys = None
-        self._draw = jax.jit(lambda k, w, n: jr.sample_minimal_sets(k, n, 5, w.shape[0], w),
-                             static_argnums=2)
+        self._draw = jax.jit(lambda k, w, n, s: jr.sample_minimal_sets(k, n, s, w.shape[0], w),
+                             static_argnums=(2, 3))
 
     def __call__(self, gen, n_hyps, sample_size, n_points, weights=None):
-        assert sample_size == 5 and weights is not None
-        c = self.calls % self.n_cams
-        if c == 0:
-            self.key, sub = jax.random.split(self.key)
-            self.keys = jax.random.split(sub, self.n_cams)
-        self.calls += 1
+        assert sample_size in (3, 5) and weights is not None
+        if sample_size == 3:
+            self.key, key = jax.random.split(self.key)
+        else:
+            c = self.calls % self.n_cams
+            if c == 0:
+                self.key, sub = jax.random.split(self.key)
+                self.keys = jax.random.split(sub, self.n_cams)
+            self.calls += 1
+            key = self.keys[c]
         with jax.enable_x64(False):
-            idx = self._draw(self.keys[c], jnp.asarray(weights.cpu().numpy()), n_hyps)
+            idx = self._draw(key, jnp.asarray(weights.cpu().numpy()), n_hyps, sample_size)
         return torch.from_numpy(np.asarray(idx).astype(np.int64))

@@ -1,7 +1,10 @@
 """The port's CUDA kernel on the card: both entries of the Hamming-NN
 kernel against their plain versions, both variants, at the system's
 shapes and ragged ones, with duplicate minima, fully gated rows and the
-adversarial cases of tests/_radius_cases.py. Equality is exact.
+adversarial cases of tests/_radius_cases.py; the vocabulary-node gate of
+SearchByBoW on the window-gated entry against a dense node gate; the
+relocalization projection search on the card against the CPU path.
+Equality is exact.
 
 These tests import no JAX, so they also run where JAX is not installed:
 
@@ -160,3 +163,85 @@ def test_system_runs_on_the_card_by_default(dev):
     from multicol_slam_tpu_torch.utils import config_io
     slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, enable_loop_closing=False)
     assert slam.device.type == "cuda" and slam.rig.M_c.is_cuda
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_node_gate_on_the_radius_entry_matches_the_dense_node_gate(dev, seed):
+    """SearchByBoW's gate (both rows valid, the same vocabulary node) put
+    in the window-gated entry's level fields, with zero pixel positions and
+    an infinite radius, at the (1, 2400) x (1, 2400) shape of the loop and
+    relocalization sites, on random trees: entry A equals the dense-gate
+    plain version on the dense node gate, and ``matcher.search_by_bow`` on
+    the card equals its CPU path."""
+    from multicol_slam_tpu_torch.models import matcher as tm
+    from multicol_slam_tpu_torch.models import vocabulary as tv
+    rng = np.random.default_rng(seed)
+    N, M = 2400, 2400
+    base = rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint32)
+    voc = tv.train_vocabulary(base[rng.choice(N, 600, replace=False)], k=4 + seed,
+                              levels=3, seed=seed).to(dev)
+    # the database: the queries with about 10 of 256 bits flipped, shuffled
+    flip = np.zeros((M, 8), np.uint32)
+    for _ in range(10):
+        bit = np.left_shift(np.uint32(1), rng.integers(0, 32, (M, 8), dtype=np.uint32))
+        flip |= np.where(rng.random((M, 8)) < 1 / 8, bit, np.uint32(0))
+    db_np = (base ^ flip)[rng.permutation(M)]
+    q = torch.from_numpy(base.view(np.int32)).to(dev)
+    db = torch.from_numpy(db_np.view(np.int32)).to(dev)
+    q_ok = torch.from_numpy(rng.random(N) < 0.8).to(dev)
+    db_ok = torch.from_numpy(rng.random(M) < 0.8).to(dev)
+    up = voc.levels - 1
+    q_node = tv.transform_words(voc, q, q_ok, levelsup=up)[1]
+    db_node = tv.transform_words(voc, db, db_ok, levelsup=up)[1]
+
+    gate = q_ok[:, None] & db_ok[None, :] & (q_node[:, None] == db_node[None, :])
+    before = knn.hamming_nn_radius.launches
+    got = knn.hamming_nn_radius(
+        q[None], db[None], torch.zeros((1, N, 2), device=dev),
+        torch.full((1, N), float("inf"), device=dev), q_node[None], q_node[None],
+        q_ok[None], torch.zeros((1, M, 2), device=dev), db_node[None], db_ok[None])
+    torch.cuda.synchronize()
+    assert knn.hamming_nn_radius.launches == before + 1
+    for a, b in zip(got, knn.hamming_nn_reference(q[None], db[None], gate[None])):
+        assert torch.equal(a, b)
+
+    params = tm.MatchParams()
+    match = tm.search_by_bow(q, q_ok, q_node, db, db_ok, db_node, params)
+    assert knn.hamming_nn_radius.launches == before + 2
+    cpu = [t.cpu() for t in (q, q_ok, q_node, db, db_ok, db_node)]
+    want = tm.search_by_bow(*cpu, params)
+    assert torch.equal(match.cpu(), want)
+    assert (want >= 0).sum() > 100
+
+
+def test_reloc_projection_match_on_the_card_matches_the_cpu(dev):
+    """The relocalization round's projection search (radius 10 x 1.2^level,
+    level +-1, free slots only, the absolute ORBdist gate) at a
+    (1, 512) x (3, 800) shape: the same matches on the card as on the CPU,
+    one launch."""
+    from multicol_slam_tpu_torch.models import matcher as tm
+    gen = torch.Generator(device=dev).manual_seed(11)
+    feats = _features(800, gen, dev)
+    C, P = 3, 512
+    # each point: a feature of its camera with a few bits flipped, predicted
+    # within a few pixels of it
+    cam = torch.randint(0, C, (P,), generator=gen, device=dev)
+    slot = torch.randint(0, 800, (P,), generator=gen, device=dev)
+    noise = _words((P, 8), gen, dev) & _words((P, 8), gen, dev) & _words((P, 8), gen, dev)
+    pt_desc = feats.desc[cam, slot] ^ (noise & _words((P, 8), gen, dev))
+    uv = feats.xy[cam, slot][None].expand(C, P, 2) \
+        + 4 * torch.randn((C, P, 2), generator=gen, device=dev)
+    lvl = feats.level[cam, slot][None].expand(C, P).contiguous()
+    ok = torch.rand((C, P), generator=gen, device=dev) < 0.7
+    has = torch.rand((C, 800), generator=gen, device=dev) < 0.3
+    args = (has, pt_desc, torch.full_like(pt_desc, -1), uv.contiguous(), ok, lvl,
+            tm.MatchParams())
+    before = knn.hamming_nn_radius.launches
+    got = tm.reloc_projection_match(feats, *args, th=10.0, orb_dist=100)
+    torch.cuda.synchronize()
+    assert knn.hamming_nn_radius.launches == before + 1
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
+    want = tm.reloc_projection_match(type(feats)(*(t.cpu() for t in feats)),
+                                     *(cpu(a) for a in args), th=10.0, orb_dist=100)
+    assert torch.equal(got.cpu(), want)
+    assert (want >= 0).sum() > 50

@@ -1,13 +1,15 @@
 """The port stands alone: importing it loads no JAX, the Hamming-NN
 wrappers take their plain versions for CPU tensors without counting a
 kernel launch and raise on other devices, the system runs on the card
-unless asked for the CPU, and it refuses the modes that are not ported
+unless asked for the CPU, it builds loop closing and relocalization in
+its default configuration, and it refuses the modes that are not ported
 yet instead of ignoring them."""
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +28,7 @@ SLICE_MODULES = [
     "multicol_slam_tpu_torch.ops.hamming",
     "multicol_slam_tpu_torch.ops.ransac",
     "multicol_slam_tpu_torch.ops.se3_np",
+    "multicol_slam_tpu_torch.ops.sim3",
     "multicol_slam_tpu_torch.kernels.hamming_nn",
     "multicol_slam_tpu_torch.models.extractor",
     "multicol_slam_tpu_torch.models.matcher",
@@ -34,6 +37,11 @@ SLICE_MODULES = [
     "multicol_slam_tpu_torch.models.initializer",
     "multicol_slam_tpu_torch.models.map",
     "multicol_slam_tpu_torch.models.local_mapping",
+    "multicol_slam_tpu_torch.models.vocabulary",
+    "multicol_slam_tpu_torch.models.keyframe_database",
+    "multicol_slam_tpu_torch.models.sim3_opt",
+    "multicol_slam_tpu_torch.models.loop_closing",
+    "multicol_slam_tpu_torch.models.global_ba",
     "multicol_slam_tpu_torch.models.system",
     "multicol_slam_tpu_torch.utils.config_io",
     "multicol_slam_tpu_torch.utils.synthetic",
@@ -101,22 +109,74 @@ def small_rig():
     return scale_rig(config_io.load_mcs(config_io.SYNTH_RIG_DIR)[0], 0.25)
 
 
-@pytest.mark.parametrize("kwargs,what", [
-    (dict(), "loop closing"),
-    (dict(enable_loop_closing=False, async_mapping=True), "async_mapping"),
-    (dict(enable_loop_closing=False, vocabulary_path="voc.npz"), "vocabular"),
-])
-def test_system_refuses_unported_modes(small_rig, kwargs, what):
+def _small_vocabulary():
+    from multicol_slam_tpu_torch.models import vocabulary as tv
+    rng = np.random.default_rng(0)
+    return tv.train_vocabulary(rng.integers(0, 2 ** 32, (300, 8), dtype=np.uint32),
+                               k=4, levels=2)
+
+
+def _two_word_dbow2_yaml(path):
+    """A DBoW2 OpenCV-YAML vocabulary of two leaves under the root (k 2,
+    L 1): node 1's 256-bit descriptor all zeros, node 2's all ones.
+    Returns the tree the port must read from it."""
+    from multicol_slam_tpu_torch.models import vocabulary as tv
+    lines = ["%YAML:1.0", "vocabulary:", "   k: 2", "   L: 1", "   scoringType: 0",
+             "   weightingType: 0", "   nodes:"]
+    for node, byte, weight in ((1, 0, 0.5), (2, 255, 0.25)):
+        desc = " ".join([str(byte)] * 32)
+        lines.append(f'      - {{ nodeId:{node}, parentId:0, weight:{weight}, '
+                     f'descriptor:"{desc}" }}')
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return tv.Vocabulary(
+        centroids=torch.tensor([[0] * 8, [0] * 8, [-1] * 8], dtype=torch.int32),
+        children=torch.tensor([[1, 2], [-1, -1], [-1, -1]], dtype=torch.int32),
+        word_of_node=torch.tensor([-1, 0, 1], dtype=torch.int32),
+        weights=torch.tensor([0.5, 0.25]), k=2, levels=1, n_words_=2)
+
+
+@pytest.mark.parametrize("vocabulary", [None, "npz", "yml"])
+def test_system_builds_loop_closing_by_default(small_rig, tmp_path, vocabulary):
+    """Loop closing is on by default, as in the JAX package; the loop
+    closer comes with the first keyframe, from a vocabulary file when one
+    is named (the npz layout or DBoW2 YAML, by extension)."""
+    from multicol_slam_tpu_torch.models import vocabulary as tv
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
-    with pytest.raises(NotImplementedError, match=what):
-        MultiColSLAM(rig=small_rig, **kwargs)
+    kw = {}
+    if vocabulary is not None:
+        path = str(tmp_path / f"voc.{vocabulary}")
+        if vocabulary == "npz":
+            voc = _small_vocabulary()
+            tv.save_vocabulary(voc, path)
+        else:
+            voc = _two_word_dbow2_yaml(path)
+        kw["vocabulary_path"] = path
+    slam = MultiColSLAM(rig=small_rig, **kw)
+    assert slam._enable_loops and slam.loop_closer is None
+    if vocabulary is None:
+        return
+    slam._ensure_loop_closer(0)
+    lc = slam.loop_closer
+    assert slam.tracker.reloc_candidates_fn is not None
+    assert slam.tracker.reloc_bow_match_fn == lc.bow_match_frame
+    assert slam.map.on_kf_removed == lc.forget_keyframe
+    for name in ("centroids", "children", "word_of_node", "weights"):
+        assert torch.equal(getattr(lc.voc, name), getattr(voc, name))
+    assert (lc.voc.k, lc.voc.levels, lc.voc.n_words) == (voc.k, voc.levels, voc.n_words)
+
+
+def test_system_refuses_unported_modes(small_rig):
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    with pytest.raises(NotImplementedError, match="async_mapping"):
+        MultiColSLAM(rig=small_rig, async_mapping=True)
 
 
 def test_unported_tracker_paths_raise(small_rig):
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
-    slam = MultiColSLAM(rig=small_rig, enable_loop_closing=False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        slam.tracker._relocalize()
+    slam = MultiColSLAM(rig=small_rig)
+    # relocalization is ported: with no keyframe to match it fails cleanly
+    assert slam.tracker._relocalize() is False
     with pytest.raises(NotImplementedError, match="item 10"):
         slam.track_batch(None, [])
     assert slam.state.name == "NO_IMAGES_YET"
