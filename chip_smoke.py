@@ -66,11 +66,29 @@ Phases, each fatal on failure:
      keyframe with it, then once through the system's own loop closer
      (SearchAndFuse on); the 14-keyframe out-and-back chain; global
      bundle adjustment taking 3 cm of point noise at least halfway back.
-     The map is restored after each step.
+     The map is restored after each step;
+  9. the system at the reference's own extractor options:
+     MultiColSLAM(calib_dir=..., settings=SlamSettings(use_mdbrief=True,
+     learn_masks=True, use_agast=True, fast_agast_type=2)), mdBRIEF with
+     its learned stability masks over AGAST 7_12 corners, otherwise at the
+     defaults, on phase 6's frames with a relocalization forced on frame
+     MDBRIEF_RELOC_AT (33) and another on frames 40-42, then phase 7's
+     second-chance round. Phase 6's bars but the ATE's (MDBRIEF_MAX_ATE,
+     see there), masked matching in the tracker and the mapper; the
+     relocalization on frame 33 run through SearchByBoW and GP3P and
+     recovered by frame 35, every returned pose within 5 cm and 1 degree
+     of ground truth's step from frame 32 (the one on frames
+     40-42 is printed, not held: see MDBRIEF_RELOC_AT); every call site
+     but SearchByBoW launched with the stability masks on every launch,
+     and SearchByBoW with none (as in the JAX package); each masked site
+     equal to its plain version. On one frame, both extractors on the card
+     against the port's CPU extractors: identical keypoints, levels and
+     validity, at most MAX_MDBRIEF_BIT_DIFF of the descriptor and of the
+     mask bits different.
 
-Each of phases 6, 7 and 8 sets the launch counts to 0 just before it
+Each of phases 6, 7, 8 and 9 sets the launch counts to 0 just before it
 drives its path and reads them just after. For each call site (phases 4,
-6, 7 and 8) the script times, on the card: the
+6, 7, 8 and 9) the script times, on the card: the
 entry's device time per launch (CUDA-graph replay, so no host enqueue in
 it), one call between two events as earlier versions timed (host enqueue
 included), the plain version, and at the window-gated sites the path the
@@ -134,6 +152,38 @@ SYS_SITES = ("init", "init_mutual", "window_search", "motion", "local_map",
              "triangulation", "cross_camera", "fuse")
 RELOC_SITES = ("reloc_bow", "reloc_projection", "reloc_window")
 LOOP_SITES = ("loop_bow", "guided_sim3", "support", "loop_fuse")
+# phase 9: the reference's extractor options, mdBRIEF with learned masks
+# over AGAST 7_12 corners; every site it reaches takes the masked distance
+# but SearchByBoW, unmasked as in the JAX package (loop_closing.py:267, :308)
+MDBRIEF = dict(use_mdbrief=True, learn_masks=True, use_agast=True, fast_agast_type=2)
+MDBRIEF_SITES = ("init", "init_mutual", "window_search", "motion", "local_map",
+                 "triangulation", "cross_camera", "fuse", "reloc_projection")
+# Phase 9 holds a relocalization forced on this frame, the one after the
+# keyframe every run makes at frame 32: it must recover by two frames
+# later, every returned pose within MAX_T_ERR / MAX_R_ERR of ground
+# truth's step from that keyframe (reloc_error). It prints, and does not hold,
+# a second one forced on frames 40-42, 0.64 m from that keyframe, where at
+# these settings the outcome turns on a few bits: GP3P keeps 3-9 of about
+# 30 SearchByBoW matches, the pose LM from the keyframe's pose fails, and
+# the projection round that starts from the failed pose finds 4-47
+# associations, 10 of which pass. tools/mdbrief_study.py, seeds 42 and
+# 1-7: the relocalized frame lands within 5 cm at 7 of 8 in the JAX
+# package on its own features, at 2 of 8 in the JAX package on the port's
+# CPU features (a few bits in 1e5 apart), at 1 of 8 in the port on the
+# card; on frame 33 the port recovers at 8 of 8 within 1.73 cm.
+MDBRIEF_RELOC_AT = 33
+UNMASKED_SITES = ("reloc_bow", "loop_bow")
+# card against CPU extraction at phase 9's settings: share of descriptor and
+# of mask bits that may differ (float32 atan2/cos/sin differ in the last
+# ulp between the card and the CPU, and a pattern point within an ulp of .5
+# rounds the other way)
+MAX_MDBRIEF_BIT_DIFF = 1e-4
+# phase 9's ATE bar, m: over the same 40 frames at these settings the JAX
+# package's ATE spans 3.37-16.08 cm across sixteen RANSAC seeds on the
+# CPU (42, 1-15), the port's 2.50-11.52 cm across sixteen runs on the card
+# (tools/mdbrief_study.py), so the default's 5 cm fails the reference at
+# most seeds; the bar lies above both spreads, where a broken path lands
+MDBRIEF_MAX_ATE = 0.20
 # the stages of a ComputeSim3 call timed apart (phase 8); "its_jacobians"
 # is the forward-mode Jacobian time inside optimize_sim3
 SIM3_STAGES = ("draws", "horn", "score", "optimize_sim3", "its_jacobians", "guided", "support")
@@ -327,13 +377,14 @@ class SiteSpy:
 
     def __init__(self, knn, matcher):
         self.knn, self.matcher = knn, matcher
-        self.launches, self.args = Counter(), {}
+        self.launches, self.masked, self.args = Counter(), Counter(), {}
 
     def _call(self, kind, args):
         site = call_site()
         if site == "init" and self.launches["init"] > self.launches["init_mutual"]:
             site = "init_mutual"           # the swapped second launch
         self.launches[site] += 1
+        self.masked[site] += len(args) > (10 if kind == "radius" else 3)
         self.args.setdefault(site, (kind, args))
         return getattr(self.knn, ENTRY[kind])(*args)
 
@@ -410,10 +461,11 @@ def percentiles(xs):
             f"(n={len(xs)})") if xs else "none"
 
 
-def check_launches(knn, spy, sites, card):
+def check_launches(knn, spy, sites, card, tag=""):
     """The launches of a phase's path: each entry's count equals the sum
     over its call sites, and every site of ``sites`` launched. Returns the
-    sites' kernel JSON entries (compared, timed and bounded)."""
+    sites' kernel JSON entries (compared, timed and bounded), each named
+    by its site and ``tag``."""
     launches = {k: getattr(knn, ENTRY[k]).launches for k in ENTRY}
     for kind in ENTRY:
         by_site = sum(n for s, n in spy.launches.items() if SITE_KIND[s] == kind)
@@ -428,7 +480,7 @@ def check_launches(knn, spy, sites, card):
         got_kind, args = spy.args[site]
         if got_kind != SITE_KIND[site]:
             fail(f"call site {site} used {ENTRY[got_kind]}, want {ENTRY[SITE_KIND[site]]}")
-        entries.append(site_entry(knn, site, got_kind, args, spy.launches[site], card))
+        entries.append(site_entry(knn, site + tag, got_kind, args, spy.launches[site], card))
     return entries
 
 
@@ -954,6 +1006,153 @@ def chain_graph(rig, lc, sim3_dev):
         fail("the essential graph did not repair the chain")
 
 
+def mdbrief_phase(dev, knn, card, frames, gt):
+    """Phase 9: the system at the reference's extractor options (mdBRIEF
+    with learned masks over AGAST 7_12) on phase 6's frames with a
+    relocalization forced on frame MDBRIEF_RELOC_AT (held), then one
+    forced on frames 40-42 (printed) and the second-chance round. Returns
+    the kernel JSON entries of its masked call sites."""
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.models.tracking import TrackState
+    from multicol_slam_tpu_torch.ops import ransac
+    from multicol_slam_tpu_torch.ops.hamming import unpack_bits_u32
+    from multicol_slam_tpu_torch.utils import config_io
+    from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
+
+    settings = config_io.SlamSettings(**MDBRIEF)
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, settings=settings)
+    tr, m = slam.tracker, slam.map
+    if slam.rig.M_c.device != dev or not tr.params.masked or not slam.mapper.params.masked:
+        fail("the mdBRIEF system is not on the card with masked matching")
+
+    at, late = MDBRIEF_RELOC_AT, SYS_FRAMES
+    kinds, times, init_frame, poses, errs = [], [], None, {}, {}
+    gpnp_calls, gpnp = [], ransac.ransac_gpnp
+
+    def counted_gpnp(*a, **k):
+        gpnp_calls.append(1)
+        return gpnp(*a, **k)
+
+    reset_launches(knn)
+    ransac.ransac_gpnp = counted_gpnp
+    try:
+        with SiteSpy(knn, matcher) as spy:
+            for i in range(SYS_FRAMES + RELOC_FRAMES):
+                was_working = slam.state == TrackState.WORKING
+                n_passes = len(slam.mapping_ms)
+                tr.force_reloc |= i in (at, late)
+                M, ms = timed(lambda: slam.track(frames[i], i / 25.0))
+                poses[i] = None if M is None else np.asarray(M, np.float64)
+                if at <= i < at + RELOC_FRAMES or i >= late:
+                    errs[i] = reloc_error(m, poses, gt, at if i < late else late, i)
+                if i < SYS_FRAMES:
+                    times.append(ms)
+                    if poses[i] is not None and init_frame is None:
+                        init_frame = i
+                    kinds.append("init" if not was_working and tr.frame_path[-1] == "init" else
+                                 "reloc" if tr.frame_path[-1] == "reloc" else
+                                 "keyframe" if len(slam.mapping_ms) > n_passes else "working")
+            late_paths = tr.frame_path[late:]
+            single, full, proj_only = second_chance(tr, m)
+    finally:
+        ransac.ransac_gpnp = gpnp
+
+    paths = tr.frame_path[at:at + RELOC_FRAMES]
+    held = [errs[i] for i in range(at, at + RELOC_FRAMES)]
+    print(f"mdbrief: init at frame {init_frame}, {m.n_keyframes()} keyframes "
+          f"({len(slam.mapping_ms)} mapping passes), {m.n_points()} points, frame paths "
+          f"{dict(Counter(tr.frame_path))}; relocalization forced on frame {at}: paths {paths}, "
+          f"frame ms {[round(times[i], 3) for i in range(at, at + RELOC_FRAMES)]}, each "
+          f"returned pose's error (m, deg) against ground truth's step from frame {at - 1} "
+          f"{held}; forced on frame {late} (not held): paths {late_paths}, errors against "
+          f"ground truth's step from frame {late - 1} "
+          f"{[errs[i] for i in range(late, late + RELOC_FRAMES)]}; second chance: single pass "
+          f"{single}, with the round {full}, projection round alone {proj_only} ({card})")
+    if init_frame is None or init_frame >= SYS_INIT_BY:
+        fail(f"the mdBRIEF system did not initialize within {SYS_INIT_BY} frames")
+    after = SYS_FRAMES - init_frame - 1
+    tracked = [i for i in range(init_frame, SYS_FRAMES) if poses[i] is not None]
+    n_work = len(tracked) - 1
+    if n_work < SYS_WORKING_FRAC * after:
+        fail(f"the mdBRIEF system was WORKING on {n_work} of the {after} frames after init")
+    if len(slam.mapping_ms) < SYS_MIN_KFS or m.n_keyframes() < SYS_MIN_KFS:
+        fail(f"the mdBRIEF system made {m.n_keyframes()} keyframes; want >= {SYS_MIN_KFS}")
+    est = np.stack([poses[i] for i in tracked])
+    ate = ate_rmse(est[:, :3, 3], gt[tracked, :3, 3])
+    print(f"mdbrief: ATE (Sim3-aligned, {len(tracked)} of frames 0-{SYS_FRAMES - 1}) {ate:.5f} m")
+    if not np.isfinite(est).all() or ate > MDBRIEF_MAX_ATE:
+        fail(f"the mdBRIEF system's ATE {ate:.4f} m is above {MDBRIEF_MAX_ATE} m")
+    if paths[0] != "reloc" or not gpnp_calls or not spy.launches["reloc_bow"]:
+        fail(f"the relocalization forced on frame {at} took the paths {paths}, "
+             f"{len(gpnp_calls)} GP3P calls, {spy.launches['reloc_bow']} SearchByBoW launches")
+    if all(e is None for e in held) or any(
+            e is not None and (e[0] > MAX_T_ERR or e[1] > MAX_R_ERR) for e in held):
+        fail(f"the relocalization forced on frame {at} did not recover by frame "
+             f"{at + RELOC_FRAMES - 1} within {MAX_T_ERR} m / {MAX_R_ERR} deg: {held}")
+    if single or not full or not proj_only:
+        fail("the mdBRIEF system's second-chance round did not recover")
+    for kind in ("init", "working", "keyframe", "reloc"):
+        xs = [t for t, kd in zip(times, kinds) if kd == kind]
+        print(f"mdbrief frame ms, {kind}: {percentiles(xs)} ({card})")
+    print(f"mdbrief mapping_ms per pass: {[round(x, 3) for x in slam.mapping_ms]} ({card})")
+
+    # every masked site launched with masks, SearchByBoW without
+    print(f"mdbrief: launches by call site {dict(spy.launches)}, of them with the masks "
+          f"{dict(spy.masked)}")
+    for site, n in spy.launches.items():
+        want = 0 if site in UNMASKED_SITES else n
+        if spy.masked[site] != want:
+            fail(f"call site {site} passed masks on {spy.masked[site]} of {n} launches, "
+                 f"want {want}")
+    sites = MDBRIEF_SITES + (("reloc_window",) if spy.launches["reloc_window"] else ())
+    entries = check_launches(knn, spy, sites, card, tag="_masked")
+
+    # extraction: the card's extractors against the port's CPU extractors
+    cpu = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, settings=settings, device="cpu",
+                       enable_loop_closing=False)
+    frame = frames[init_frame]
+    for name in ("extract_init", "extract"):
+        got = getattr(slam, name)(frame)
+        want = getattr(cpu, name)(frame.cpu())
+        for field in ("xy", "level", "valid"):
+            if not torch.equal(getattr(got, field).cpu(), getattr(want, field)):
+                fail(f"{name}: the card's keypoint {field} differ from the CPU's")
+        ok = want.valid
+        off_axis = torch.rad2deg(torch.arccos(want.ray[..., 2].clamp(-1, 1)))[ok]
+        diff, where = {}, set()
+        for field in ("desc", "desc_mask"):
+            a = unpack_bits_u32(getattr(got, field).cpu())[ok]
+            b = unpack_bits_u32(getattr(want, field))[ok]
+            diff[field] = (int((a != b).sum()), a.numel())
+            where.update(round(float(x), 1) for x in off_axis[(a != b).any(-1)])
+        print(f"mdbrief {name} on frame {init_frame}, card against CPU: keypoints, levels and "
+              f"validity identical; bits that differ: descriptor {diff['desc'][0]} of "
+              f"{diff['desc'][1]}, mask {diff['desc_mask'][0]} of {diff['desc_mask'][1]}, in "
+              f"keypoints at {sorted(where)} degrees off axis (float32 atan2/cos/sin differ "
+              f"in the last ulp between the card and the CPU, and a pattern point within an "
+              f"ulp of .5 rounds the other way)")
+        if any(n > MAX_MDBRIEF_BIT_DIFF * tot for n, tot in diff.values()):
+            fail(f"{name}: more than {MAX_MDBRIEF_BIT_DIFF} of the bits differ from the CPU's")
+    return entries
+
+
+def reloc_error(m, poses, gt, at, i):
+    """(m, degrees): frame i's returned pose (poses: frame -> (4, 4) or
+    None) against ground truth, both relative to frame at - 1: its pose in
+    map m when it is a keyframe (local BA may have moved it since it was
+    returned), else the pose returned for it; so the map's drift before
+    frame at - 1 does not count. None without a pose."""
+    from multicol_slam_tpu_torch.ops import se3_np
+
+    if poses[i] is None:
+        return None
+    kf = [k for k in m.keyframe_ids() if m.kf_frame_id[k] == at - 1]
+    ref = se3_np.cayley2hom(m.kf_pose[kf[0]]) if kf else poses[at - 1]
+    t, r = pose_errors_hom(np.linalg.inv(ref) @ poses[i], np.linalg.inv(gt[at - 1]) @ gt[i])
+    return round(t, 5), round(r, 4)
+
+
 def keyframes_moved(m, before):
     """How many keyframes there are now against ``before`` (keyframe ->
     pose), and how far the ones of ``before`` have moved since."""
@@ -1158,7 +1357,11 @@ def main() -> None:
     # -- 8. loop closing -----------------------------------------------------
     loop_entries = loop_phase(knn, card, slam)
 
-    print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries}))
+    # -- 9. the mdBRIEF system -------------------------------------------------
+    md_entries = mdbrief_phase(dev, knn, card, frames, gt)
+
+    print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries
+                      + md_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

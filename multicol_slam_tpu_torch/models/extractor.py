@@ -1,12 +1,13 @@
-"""MultiFrame ORB feature extraction with the rig's cameras as a batch.
+"""MultiFrame feature extraction with the rig's cameras as a batch.
 
 Port of ``multicol_slam_tpu/models/extractor.py`` (reference
 mdBRIEFextractorOct.cpp and cMultiFrame.cpp:92-216): an 8-level 1.2x
-pyramid, FAST 20 with fallback 5 in 30 px cells inside the mirror mask,
-optional Harris ranking, bucketed uniform top-k per level, one raw patch
-gather feeding IC_Angle and a 5x5 blur rounded to integers, ORB bits, and
-a bearing ray per keypoint. The cameras are the leading dimension of
-every tensor in place of the JAX package's ``vmap``.
+pyramid, FAST-9/16 or AGAST corners at threshold 20 with fallback 5 in
+30 px cells inside the mirror mask, optional Harris ranking, bucketed
+uniform top-k per level, one raw patch gather feeding IC_Angle and a 5x5
+blur rounded to integers, ORB, dBRIEF or mdBRIEF bits (mdBRIEF with its
+stability mask), and a bearing ray per keypoint. The cameras are the
+leading dimension of every tensor in place of the JAX package's ``vmap``.
 """
 
 from __future__ import annotations
@@ -17,21 +18,21 @@ import numpy as np
 import torch
 
 from ..ops import brief, fast, pyramid
-from ..ops.camera import CameraModel, img_to_world
+from ..ops.camera import CameraModel, img_to_world, undistort_points
 
 
 class ExtractorConfig(NamedTuple):
-    """ORB over FAST-9/16 corners. The JAX package's dBRIEF/mdBRIEF and
-    AGAST options are not ported yet."""
-
     n_features: int = 400          # per camera (extractor.nFeatures)
     scale_factor: float = 1.2
     n_levels: int = 8
     fast_th: int = 20
     fast_th_min: int = 5           # per-cell fallback threshold
-    desc_bytes: int = 32
+    desc_bytes: int = 32           # extractor.descSize (16/32/64)
+    use_dbrief: bool = False       # extractor.usemdBRIEF -> dBRIEF
+    learn_masks: bool = False      # extractor.masks -> mdBRIEF masks
     cell: int = 30
     border: int = 26
+    detector_mask: str = "fast_9_16"   # fast_9_16 | agast_7_12 | agast_5_8
     use_harris: bool = False
 
     @property
@@ -105,7 +106,7 @@ def make_extractor(cfg: ExtractorConfig, cams: CameraModel,
         if device not in consts:
             consts[device] = dict(
                 pattern=pattern.to(device), masks=[m.to(device) for m in masks],
-                cams=cams.to(device).expand(1),
+                cams=cams.to(device).expand(1), cams2=cams.to(device).expand(2),
                 level_off=torch.tensor([[row_off[lvl], 0] for lvl in levels],
                                        dtype=torch.int32, device=device),
                 scales=torch.tensor(scales, dtype=torch.float32, device=device),
@@ -124,7 +125,7 @@ def make_extractor(cfg: ExtractorConfig, cams: CameraModel,
             img = pyr[lvl]
             hl, wl = sizes[lvl]
             score = fast.fast_with_fallback(img, cfg.fast_th, cfg.fast_th_min,
-                                            cfg.cell)
+                                            cfg.cell, cfg.detector_mask)
             if cfg.use_harris:
                 score = torch.where(score > 0, fast.harris_score(img) + 1e-6,
                                     torch.zeros_like(score))
@@ -150,9 +151,19 @@ def make_extractor(cfg: ExtractorConfig, cams: CameraModel,
         angle = brief.ic_angle_patches(patches_raw)
         # integer-valued blurred patches, as the reference's uint8 blur
         patches_blur = torch.round(brief.blur_patches_valid(patches_raw))
-        desc = brief.orb_from_patches(patches_blur, angle, dc["pattern"])
-        dmask = torch.full_like(desc, -1)   # 0xFFFFFFFF: every bit stable
-        ray = img_to_world(dc["cams"], xy_full)
+        cams1 = dc["cams"]
+        if cfg.use_dbrief:
+            undist = undistort_points(cams1, xy_full, cams1.p1[..., None])
+            args = (patches_blur, angle, undist, dc["cams2"], dc["pattern"])
+            if cfg.learn_masks:
+                desc, dmask = brief.mdbrief_from_patches(*args)
+            else:
+                desc = brief.dbrief_from_patches(*args)
+                dmask = torch.full_like(desc, -1)   # 0xFFFFFFFF: every bit stable
+        else:
+            desc = brief.orb_from_patches(patches_blur, angle, dc["pattern"])
+            dmask = torch.full_like(desc, -1)
+        ray = img_to_world(cams1, xy_full)
         return Features(xy=xy_full, level=level, angle=angle, response=resp,
                         ray=ray, desc=desc, desc_mask=dmask, valid=valid)
 

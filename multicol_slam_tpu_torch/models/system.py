@@ -86,14 +86,17 @@ class MultiColSLAM:
                               level_sizes(h, w, s.n_levels, s.scale_factor)])
         masks_lvl = [np.stack([m[lvl] for m in masks]) for lvl in range(s.n_levels)]
 
-        if s.use_mdbrief or s.use_agast:
-            raise NotImplementedError(
-                "dBRIEF/mdBRIEF and AGAST are not ported yet (ROADMAP queue 1, "
-                "item 2): use ORB with FAST (use_mdbrief=False, use_agast=False)")
+        # extractor.useAgast + fastAgastType -> detector mask
+        # (cv::AgastFeatureDetector types 0..3; 3 = OAST_9_16, FAST's ring)
+        mask = "fast_9_16"
+        if s.use_agast:
+            mask = {0: "agast_5_8", 1: "agast_7_12", 2: "agast_7_12"}.get(
+                s.fast_agast_type, "fast_9_16")
         ecfg = ExtractorConfig(
             n_features=s.n_features, scale_factor=s.scale_factor,
             n_levels=s.n_levels, fast_th=s.fast_th, desc_bytes=s.desc_size,
-            use_harris=s.score_harris)
+            use_dbrief=s.use_mdbrief, learn_masks=s.learn_masks,
+            detector_mask=mask, use_harris=s.score_harris)
         self.extract = make_extractor(ecfg, self.rig.cams, masks_lvl, (h, w))
         # init extractor: 2x features, FAST threshold 5 (cTracking.cpp:206-235)
         ecfg_init = ecfg._replace(n_features=2 * s.n_features, fast_th=5)

@@ -1,11 +1,13 @@
-"""Oriented binary descriptors: ORB from per-keypoint patches.
+"""Oriented binary descriptors: ORB, dBRIEF and mdBRIEF from per-keypoint
+patches.
 
 Port of ``multicol_slam_tpu/ops/brief.py`` (reference
-mdBRIEFextractorOct.cpp: IC_Angle :221-248, compute_ORB :303-354). The
-JAX package samples pattern points with one-hot bf16 matmuls because
-gathers are slow on a TPU; here a direct gather reads the same values.
-Callers still pass integer-valued blurred patches, as the extractor's
-rounding guarantees (the reference blurs a uint8 image).
+mdBRIEFextractorOct.cpp: IC_Angle :221-248, rotateAndDistortPattern
+:250-283, compute_ORB :303-354, compute_dBRIEF :356-408, compute_mdBRIEF
+:410-554). The JAX package samples pattern points with one-hot bf16
+matmuls because gathers are slow on a TPU; here a direct gather reads the
+same values. Callers still pass integer-valued blurred patches, as the
+extractor's rounding guarantees (the reference blurs a uint8 image).
 """
 
 from __future__ import annotations
@@ -15,9 +17,14 @@ import functools
 import numpy as np
 import torch
 
+from .camera import CameraModel, distort_points
 from .hamming import pack_bits_u32
 
 HALF_PATCH = 15           # IC_Angle patch radius (31x31)
+INT32_MAX = 2 ** 31 - 1
+# the largest float32 below 2**31: it casts to int32 exactly
+_F32_BELOW_2_31 = 2147483520.0
+MDBRIEF_ROT = float(np.float32(np.deg2rad(20.0)))   # the mask's +-20 degrees
 PATCH = 48                # descriptor sampling window (covers +-23 px)
 PATCH_R = PATCH // 2
 
@@ -114,10 +121,89 @@ def _sample_patch_values(patches: torch.Tensor, offsets: torch.Tensor) -> torch.
     return torch.gather(flat, -1, off[..., 0] * p + off[..., 1])
 
 
+def _bits(patches_blur: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """The binary tests I(p0_b) < I(p1_b) at the pattern offsets (..., 2B, 2)."""
+    vals = _sample_patch_values(patches_blur, offsets)
+    return vals[..., 0::2] < vals[..., 1::2]
+
+
 def orb_from_patches(patches_blur: torch.Tensor, angle: torch.Tensor,
                      pattern: torch.Tensor) -> torch.Tensor:
     """ORB from pre-blurred patches (..., P, P) centred on the keypoint:
     bit b = I(p0_b) < I(p1_b), packed LSB-first into int32 words."""
     offsets = rotate_pattern_int(pattern.to(torch.float32), angle)
-    vals = _sample_patch_values(patches_blur, offsets)
-    return pack_bits_u32(vals[..., 0::2] < vals[..., 1::2])
+    return pack_bits_u32(_bits(patches_blur, offsets))
+
+
+def compute_orb(img_blur: torch.Tensor, yx: torch.Tensor, angle: torch.Tensor,
+                pattern: torch.Tensor) -> torch.Tensor:
+    """ORB on whole blurred images: img_blur (B, H, W), yx (B, K, 2) integer
+    keypoints, angle (B, K). Returns (B, K, n_pairs // 32) int32."""
+    return orb_from_patches(extract_patches(img_blur, yx, PATCH_R), angle, pattern)
+
+
+def round_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even and cast to int32 as XLA does: NaN to 0, values
+    beyond the int32 range (infinities too) saturate to its ends. A bare
+    ``.to(torch.int32)`` sends NaN, +-inf and out-of-range values to
+    INT_MIN on the CPU and saturates on the card."""
+    r = torch.round(x)
+    out = torch.nan_to_num(r, nan=0.0).clamp(-2.0 ** 31, _F32_BELOW_2_31).to(torch.int32)
+    return out.masked_fill(r >= 2.0 ** 31, INT32_MAX)
+
+
+def distorted_pattern_offsets(cam: CameraModel, undist_kp: torch.Tensor,
+                              pattern: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """rotateAndDistortPattern (mdBRIEFextractorOct.cpp:250-283): the
+    pattern (2B, 2) (x, y) rotated by each keypoint's angle (...,) in the
+    undistorted plane around its undistorted point undist_kp (..., 2),
+    every point distorted through the camera, the mean subtracted, rounded
+    half to even. ``cam``'s fields broadcast against (..., 2B) (for (C, K)
+    keypoints, ``cams.expand(2)``). Returns (..., 2B, 2) int32 (dy, dx)."""
+    ax, ay = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+    x, y = pattern[:, 0].to(torch.float32), pattern[:, 1].to(torch.float32)
+    xr = x * ax - y * ay + undist_kp[..., 0:1]
+    yr = x * ay + y * ax + undist_kp[..., 1:2]
+    uv = distort_points(cam, torch.stack([xr, yr], -1))      # (..., 2B, 2)
+    uv = round_to_int32(uv - uv.mean(-2, keepdim=True))
+    return torch.stack([uv[..., 1], uv[..., 0]], -1)
+
+
+def dbrief_from_patches(patches_blur: torch.Tensor, angle: torch.Tensor,
+                        undist_kp: torch.Tensor, cam: CameraModel,
+                        pattern: torch.Tensor) -> torch.Tensor:
+    """dBRIEF from pre-blurred patches (..., P, P) centred on the keypoint."""
+    offsets = distorted_pattern_offsets(cam, undist_kp, pattern, angle)
+    return pack_bits_u32(_bits(patches_blur, offsets))
+
+
+def mdbrief_from_patches(patches_blur: torch.Tensor, angle: torch.Tensor,
+                         undist_kp: torch.Tensor, cam: CameraModel,
+                         pattern: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """mdBRIEF (descriptor, stability mask) from pre-blurred patches: the
+    dBRIEF bits at the keypoint's angle, and a mask bit of 1 where the
+    tests at the angle +-20 degrees both agree with them
+    (mdBRIEFextractorOct.cpp:460-554)."""
+    def bits_at(a):
+        return _bits(patches_blur, distorted_pattern_offsets(cam, undist_kp, pattern, a))
+
+    b0 = bits_at(angle)
+    stable = (bits_at(angle + MDBRIEF_ROT) == b0) & (bits_at(angle - MDBRIEF_ROT) == b0)
+    return pack_bits_u32(b0), pack_bits_u32(stable)
+
+
+def compute_dbrief(img_blur: torch.Tensor, yx: torch.Tensor, angle: torch.Tensor,
+                   undist_kp: torch.Tensor, cam: CameraModel,
+                   pattern: torch.Tensor) -> torch.Tensor:
+    """dBRIEF on whole blurred images (B, H, W) at keypoints yx (B, K, 2)."""
+    return dbrief_from_patches(extract_patches(img_blur, yx, PATCH_R), angle,
+                               undist_kp, cam, pattern)
+
+
+def compute_mdbrief(img_blur: torch.Tensor, yx: torch.Tensor, angle: torch.Tensor,
+                    undist_kp: torch.Tensor, cam: CameraModel,
+                    pattern: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(descriptor, stability mask), both (B, K, n_pairs // 32) int32, on
+    whole blurred images (B, H, W) at keypoints yx (B, K, 2)."""
+    return mdbrief_from_patches(extract_patches(img_blur, yx, PATCH_R), angle,
+                                undist_kp, cam, pattern)

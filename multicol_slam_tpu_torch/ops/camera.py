@@ -1,7 +1,8 @@
 """Scaramuzza omnidirectional camera model on tensors.
 
 Port of ``multicol_slam_tpu/ops/camera.py`` (reference cam_model_omni.cpp:
-ImgToWorld :29-87, WorldToImg :90-161, mirror masks :181-220). A rig is
+ImgToWorld :29-87, WorldToImg :90-161, mirror masks :181-220;
+undistort/distortPointsOcam cam_model_omni.h:127-145). A rig is
 one ``CameraModel`` whose fields lead with the camera axis; the
 projection functions broadcast the fields against the points, so
 ``expand`` lines a batched camera up with (C, ...) point tensors in place
@@ -39,6 +40,11 @@ class CameraModel(NamedTuple):
     @property
     def inv_affine(self) -> torch.Tensor:
         return self.c - self.d * self.e
+
+    @property
+    def p1(self) -> torch.Tensor:
+        """First forward poly coefficient a0 (cam_model_omni.h:100)."""
+        return self.poly[..., 0]
 
     def to(self, device) -> "CameraModel":
         return CameraModel(*(f.to(device) for f in self))
@@ -124,6 +130,20 @@ def world_to_img(cam: CameraModel, X: torch.Tensor) -> torch.Tensor:
     u = uu * cam.c + vv * cam.d + cam.u0
     v = uu * cam.e + vv + cam.v0
     return torch.stack([u, v], -1)
+
+
+def undistort_points(cam: CameraModel, uv: torch.Tensor, scale) -> torch.Tensor:
+    """Pixel (..., 2) -> ideal-plane point -x/z*s, -y/z*s
+    (cam_model_omni.h:127-138). ``scale`` broadcasts against uv[..., :1]."""
+    X = img_to_world(cam, uv)
+    return -X[..., :2] / X[..., 2:3] * scale
+
+
+def distort_points(cam: CameraModel, xy: torch.Tensor) -> torch.Tensor:
+    """Ideal-plane point (..., 2) -> pixel: WorldToImg(x, y, -p1)
+    (cam_model_omni.h:140-145)."""
+    z = torch.broadcast_to(-cam.p1, xy[..., 0].shape)
+    return world_to_img(cam, torch.stack([xy[..., 0], xy[..., 1], z], -1))
 
 
 def make_mirror_masks(cam_u0: float, cam_v0: float, width: int, height: int,

@@ -1,4 +1,5 @@
-"""Dense FAST-9/16 corner scores, Harris ranking and uniform selection.
+"""Dense FAST-9/16 and AGAST corner scores, Harris ranking and uniform
+selection.
 
 Port of ``multicol_slam_tpu/ops/fast.py`` (reference
 mdBRIEFextractorOct.cpp:631-976). Every function takes images with
@@ -20,7 +21,23 @@ CIRCLE = np.array([
     (-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
     (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
 ], np.int32)
-ARC = 9
+# The AGAST rings of the reference's fastAgastType options
+# (mdBRIEFextractorOct.cpp:863-950): 7_12 (radius 2, 12 pixels, arc 7) and
+# 5_8 (radius 1, 8 pixels, arc 5).
+CIRCLE_12 = np.array([
+    (-2, 0), (-2, 1), (-1, 2), (0, 2), (1, 2), (2, 1),
+    (2, 0), (2, -1), (1, -2), (0, -2), (-1, -2), (-2, -1),
+], np.int32)
+CIRCLE_8 = np.array([
+    (-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1), (-1, -1),
+], np.int32)
+
+# mask name -> (ring, arc length, ring radius)
+DETECTOR_MASKS = {
+    "fast_9_16": (CIRCLE, 9, 3),
+    "agast_7_12": (CIRCLE_12, 7, 2),
+    "agast_5_8": (CIRCLE_8, 5, 1),
+}
 
 
 def _pad2(x: torch.Tensor, pads, mode: str, value: float = 0.0) -> torch.Tensor:
@@ -51,17 +68,20 @@ def _ring_min_arc(x: list[torch.Tensor], arc: int) -> list[torch.Tensor]:
     return cur
 
 
-def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
+def fast_score(img: torch.Tensor, threshold: float,
+               mask: str = "fast_9_16") -> torch.Tensor:
     """Segment-test corner score (..., H, W); 0 where not a corner. Score
     is the largest threshold at which the pixel stays a corner (cv::FAST
-    cornerScore semantics)."""
+    cornerScore semantics). ``mask`` names the ring and arc:
+    fast_9_16 (cv::FAST), agast_7_12 or agast_5_8."""
+    circle, arc, r = DETECTOR_MASKS[mask]
     h, w = img.shape[-2:]
-    pad = _pad2(img, ((3, 3), (3, 3)), "replicate")
-    d = [pad[..., 3 + dy: 3 + dy + h, 3 + dx: 3 + dx + w] - img
-         for dy, dx in CIRCLE]
+    pad = _pad2(img, ((r, r), (r, r)), "replicate")
+    d = [pad[..., r + dy: r + dy + h, r + dx: r + dx + w] - img
+         for dy, dx in circle]
     dn = [-v for v in d]
-    bright = functools.reduce(torch.maximum, _ring_min_arc(d, ARC))
-    dark = functools.reduce(torch.maximum, _ring_min_arc(dn, ARC))
+    bright = functools.reduce(torch.maximum, _ring_min_arc(d, arc))
+    dark = functools.reduce(torch.maximum, _ring_min_arc(dn, arc))
     score = torch.maximum(bright, dark) - 1.0
     return torch.where(score >= threshold, score, torch.zeros_like(score))
 
@@ -114,10 +134,10 @@ def _window_any(x: torch.Tensor, cell: int) -> torch.Tensor:
 
 
 def fast_with_fallback(img: torch.Tensor, th_hi: float, th_lo: float,
-                       cell: int = 30) -> torch.Tensor:
-    """FAST th_hi per cell, th_lo in cells without a th_hi corner
+                       cell: int = 30, mask: str = "fast_9_16") -> torch.Tensor:
+    """FAST/AGAST th_hi per cell, th_lo in cells without a th_hi corner
     (mdBRIEFextractorOct.cpp:905-940), then 3x3 NMS."""
-    s_lo = fast_score(img, th_lo)
+    s_lo = fast_score(img, th_lo, mask)
     s_hi = torch.where(s_lo >= th_hi, s_lo, torch.zeros_like(s_lo))
     use_hi = _window_any(s_hi, cell)
     return nonmax_3x3(torch.where(use_hi, s_hi, s_lo))

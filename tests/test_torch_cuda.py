@@ -3,8 +3,12 @@ kernel against their plain versions, both variants, at the system's
 shapes and ragged ones, with duplicate minima, fully gated rows and the
 adversarial cases of tests/_radius_cases.py; the vocabulary-node gate of
 SearchByBoW on the window-gated entry against a dense node gate; the
-relocalization projection search on the card against the CPU path.
-Equality is exact.
+relocalization projection search on the card against the CPU path; the
+mdBRIEF path: the pattern offsets' saturating cast, the distorted pattern
+and both extractors of the mdBRIEF system on the card against the CPU (to
+the bars stated in those tests), and the masked window-gated entry on the
+system's own stability masks. Equality is exact unless a test states a
+bar.
 
 These tests import no JAX, so they also run where JAX is not installed:
 
@@ -245,3 +249,100 @@ def test_reloc_projection_match_on_the_card_matches_the_cpu(dev):
                                      *(cpu(a) for a in args), th=10.0, orb_dist=100)
     assert torch.equal(got.cpu(), want)
     assert (want >= 0).sum() > 50
+
+
+def test_round_to_int32_on_the_card_is_xlas_cast(dev):
+    """The pattern offsets' cast: NaN to 0, saturation at the int32 range,
+    on the card as on the CPU (a bare cast saturates on the card and sends
+    all of these to INT_MIN on the CPU)."""
+    from multicol_slam_tpu_torch.ops.brief import round_to_int32
+    x = torch.tensor([float("nan"), float("inf"), -float("inf"), 3e9, -3e9, 2.5, -2.5,
+                      2147483520.0, 2.0 ** 31, -2.0 ** 31])
+    want = [0, 2 ** 31 - 1, -2 ** 31, 2 ** 31 - 1, -2 ** 31, 2, -2, 2147483520,
+            2 ** 31 - 1, -2 ** 31]
+    assert round_to_int32(x.to(dev)).cpu().tolist() == want
+    assert round_to_int32(x).tolist() == want
+
+
+def _mdbrief_systems():
+    """The mdBRIEF system (learned masks, AGAST 7_12) on the card and on the
+    CPU, with two frames of bench_trajectory rendered on the card."""
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils import config_io, synthetic
+    s = config_io.SlamSettings(use_mdbrief=True, learn_masks=True, use_agast=True,
+                               fast_agast_type=2)
+    card = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, settings=s, enable_loop_closing=False)
+    cpu = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, settings=s, enable_loop_closing=False,
+                       device="cpu")
+    gt = synthetic.bench_trajectory(43)[[0, 8]]
+    render = synthetic.make_renderer(card.rig)
+    frames = render(torch.tensor(gt, dtype=torch.float32, device=card.device))
+    return card, cpu, frames.round().to(torch.uint8)
+
+
+def test_distorted_pattern_offsets_on_the_card_match_the_cpu(dev):
+    """The card's float32 atan2, cos and sin differ from the CPU's in the
+    last ulp; at least 99.99% of the pattern points must round alike (the
+    bar the CPU holds against the JAX package, tests/test_torch_dbrief.py)."""
+    from multicol_slam_tpu_torch.ops import brief
+    from multicol_slam_tpu_torch.ops.camera import undistort_points
+    card, _, frames = _mdbrief_systems()
+    f = card.extract_init(frames[0])
+    cams1, cams2 = card.rig.cams.expand(1), card.rig.cams.expand(2)
+    und = undistort_points(cams1, f.xy, cams1.p1[..., None])
+    pat = torch.from_numpy(brief.make_pattern(256))
+    got = brief.distorted_pattern_offsets(cams2, und, pat.to(dev), f.angle).cpu()
+    want = brief.distorted_pattern_offsets(type(cams2)(*(t.cpu() for t in cams2)), und.cpu(),
+                                           pat, f.angle.cpu())
+    same = (got == want).all(-1)
+    assert got.shape == (3, 800, 512, 2)
+    assert float(same.float().mean()) >= 0.9999, int((~same).sum())
+
+
+def test_mdbrief_extractor_on_the_card_matches_the_cpu(dev):
+    """Both extractors of the mdBRIEF system on one frame: identical
+    keypoints, levels and validity; descriptor and mask bits within 1e-4
+    of the bits."""
+    from multicol_slam_tpu_torch.ops.hamming import unpack_bits_u32
+    card, cpu, frames = _mdbrief_systems()
+    for name in ("extract", "extract_init"):
+        got = getattr(card, name)(frames[1])
+        want = getattr(cpu, name)(frames[1].cpu())
+        for field in ("xy", "level", "valid"):
+            assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), (name, field)
+        ok = want.valid
+        for field in ("desc", "desc_mask"):
+            a = unpack_bits_u32(getattr(got, field).cpu())[ok]
+            b = unpack_bits_u32(getattr(want, field))[ok]
+            assert float((a != b).float().mean()) <= 1e-4, (name, field)
+
+
+def test_masked_radius_entry_on_real_stability_masks(dev):
+    """Entry A with the mdBRIEF system's own descriptors and stability masks
+    (dense, about two thirds of the bits set) at the initialization shape
+    (3, 800) x (3, 800) and the local-map shape (1, 1024) x (3, 800):
+    equal to its plain version, and the matcher's search equal to its CPU
+    path."""
+    from multicol_slam_tpu_torch.models import matcher as tm
+    card, _, frames = _mdbrief_systems()
+    f1, f2 = card.extract_init(frames[0]), card.extract_init(frames[1])
+    C, K = f1.valid.shape
+    r2 = torch.full((C, K), 2500.0, device=dev)
+    zero = torch.zeros_like(f1.level)
+    args = [f1.desc, f2.desc, f1.xy, r2, zero, zero, f1.valid & (f1.level == 0),
+            f2.xy, f2.level, f2.valid, f1.desc_mask, f2.desc_mask]
+    got = _radius_matches_plain([t.contiguous() for t in args])
+    assert (got[0] >= 0).sum() > 100
+    # 1024 map points shared by the cameras: slots of f1 as points
+    pick = torch.arange(1024, device=dev) % (C * K)
+    pts_desc = f1.desc.reshape(C * K, -1)[pick][None].contiguous()
+    pts_mask = f1.desc_mask.reshape(C * K, -1)[pick][None].contiguous()
+    uv = f1.xy.reshape(C * K, 2)[pick][None].expand(C, 1024, 2).contiguous()
+    lvl = f1.level.reshape(-1)[pick][None].expand(C, 1024).contiguous()
+    ok = f1.valid.reshape(-1)[pick][None].expand(C, 1024).contiguous()
+    _radius_matches_plain([pts_desc, f2.desc, uv, torch.full((C, 1024), 144.0, device=dev),
+                           lvl - 1, lvl, ok, f2.xy, f2.level, f2.valid, pts_mask, f2.desc_mask])
+    params = tm.MatchParams(masked=True)
+    match = tm.search_for_initialization(f1, f2, params)
+    cpu = lambda f: type(f)(*(t.cpu() for t in f))
+    assert torch.equal(match.cpu(), tm.search_for_initialization(cpu(f1), cpu(f2), params))

@@ -12,11 +12,27 @@ Bars, each measured on this configuration:
     resize matmuls sum in another order than XLA's;
   - Harris response within 1e-5 relative, IC angle within 1e-5 rad,
     bearing rays within 1e-6: float32 sums in another order.
+
+The extractor's options (``test_extractor_options_match_jax``: ORB,
+dBRIEF and mdBRIEF over FAST-9/16, AGAST 7_12 and AGAST 5_8, and ORB at
+16 and 64 bytes) are held on one frame to:
+  - the same keypoints, levels and validity. A slot's place in the (C, K)
+    order may differ where two Harris responses lie one float32 ulp apart
+    and the top-k takes them in the other order (measured: one such pair
+    at AGAST 5_8, responses 1.1026963e-6 and 1.1026964e-6), so each
+    camera's keypoints are compared sorted by (level, y, x); at most 1% of
+    the slots may move;
+  - ORB bits identical; dBRIEF and mdBRIEF descriptor and mask bits within
+    1e-4 of the bits (measured at most 4.3e-6 descriptor and 8.7e-6 mask
+    bits): the distorted pattern's float32 trigonometry differs by an ulp
+    between the libraries and a point within an ulp of .5 rounds the
+    other way (tests/test_torch_dbrief.py).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from multicol_slam_tpu.models import extractor as jext
@@ -132,3 +148,49 @@ def test_extractor_matches_jax():
                            thm.unpack_bits_u32(jf.desc)[valid])
         n_valid += int(valid.sum())
     assert n_valid > 0.9 * 3 * 3 * U.N_FEATURES
+
+
+OPTIONS = [(d, m, 32) for d in ("orb", "dbrief", "mdbrief")
+           for m in ("fast_9_16", "agast_7_12", "agast_5_8")] + [
+    ("orb", "fast_9_16", 16), ("orb", "fast_9_16", 64)]
+MAX_BIT_DIFF = 1e-4
+
+
+def _by_position(f):
+    """Each camera's slots sorted by (validity, level, y, x): (C, K) indices."""
+    xy, lvl, ok = f.xy.numpy(), f.level.numpy(), f.valid.numpy()
+    return torch.from_numpy(np.stack([
+        np.lexsort((xy[c, :, 0], xy[c, :, 1], lvl[c], ~ok[c])) for c in range(len(ok))]))
+
+
+@pytest.mark.parametrize("desc,detector,desc_bytes", OPTIONS)
+def test_extractor_options_match_jax(desc, detector, desc_bytes):
+    kw = dict(U._extractor_kwargs(), desc_bytes=desc_bytes, detector_mask=detector,
+              use_dbrief=desc != "orb", learn_masks=desc == "mdbrief")
+    jx = jext.make_extractor(jext.ExtractorConfig(**kw), U.jax_rig().cams,
+                             U.masks_by_level(), U.image_hw())
+    tx = text.make_extractor(text.ExtractorConfig(**kw), U.torch_rig().cams,
+                             U.masks_by_level(), U.image_hw())
+    img = _image()
+    tf = tx(img)
+    with U.f32():
+        jf = convert.features_from_numpy(jx(jnp.asarray(img.numpy())))
+    assert tf.desc.shape == (3, U.N_FEATURES, desc_bytes // 4)
+    to, jo = _by_position(tf), _by_position(jf)
+    assert (to != jo).float().mean() <= 0.01
+    pick = lambda f, o, name: torch.gather(
+        getattr(f, name), 1, o.reshape(o.shape + (1,) * (getattr(f, name).dim() - 2)).expand(
+            o.shape + tuple(getattr(f, name).shape[2:])))
+    for name in ("xy", "level", "valid"):
+        assert torch.equal(pick(tf, to, name), pick(jf, jo, name)), name
+    valid = pick(jf, jo, "valid")
+    assert int(valid.sum()) > 0.9 * 3 * U.N_FEATURES
+    for name in ("desc", "desc_mask"):
+        a = thm.unpack_bits_u32(pick(tf, to, name))[valid]
+        b = thm.unpack_bits_u32(pick(jf, jo, name))[valid]
+        diff = float((a != b).float().mean())
+        assert diff == 0.0 if desc == "orb" else diff <= MAX_BIT_DIFF, (name, diff)
+    if desc == "mdbrief":
+        assert 0.3 < float(thm.unpack_bits_u32(tf.desc_mask)[tf.valid].float().mean()) < 1.0
+    else:
+        assert bool((tf.desc_mask == -1).all())

@@ -2,8 +2,9 @@
 wrappers take their plain versions for CPU tensors without counting a
 kernel launch and raise on other devices, the system runs on the card
 unless asked for the CPU, it builds loop closing and relocalization in
-its default configuration, and it refuses the modes that are not ported
-yet instead of ignoring them."""
+its default configuration, it runs every extractor option of the
+reference, and it refuses the modes that are not ported yet instead of
+ignoring them."""
 
 import os
 import subprocess
@@ -164,6 +165,38 @@ def test_system_builds_loop_closing_by_default(small_rig, tmp_path, vocabulary):
     for name in ("centroids", "children", "word_of_node", "weights"):
         assert torch.equal(getattr(lc.voc, name), getattr(voc, name))
     assert (lc.voc.k, lc.voc.levels, lc.voc.n_words) == (voc.k, voc.levels, voc.n_words)
+
+
+@pytest.mark.parametrize("opts,detector", [
+    (dict(use_mdbrief=True, learn_masks=True, use_agast=True, fast_agast_type=0), "agast_5_8"),
+    (dict(use_mdbrief=True, learn_masks=True, use_agast=True, fast_agast_type=1), "agast_7_12"),
+    (dict(use_mdbrief=True, learn_masks=True, use_agast=True, fast_agast_type=2), "agast_7_12"),
+    (dict(use_mdbrief=True, learn_masks=True, use_agast=True, fast_agast_type=3), "fast_9_16"),
+    (dict(use_mdbrief=True, learn_masks=False), "fast_9_16"),
+    (dict(learn_masks=True, use_agast=False, fast_agast_type=0), "fast_9_16"),
+])
+def test_system_runs_every_extractor_option(small_rig, monkeypatch, opts, detector):
+    """The reference's extractor options (extractor.usemdBRIEF, .masks,
+    .useAgast, .fastAgastType) build both extractors as the JAX package's
+    system.py:72-89 does and run a frame; the matchers take the masked
+    distance only for mdBRIEF with learned masks."""
+    from multicol_slam_tpu_torch.models import system as tsys
+    from multicol_slam_tpu_torch.utils import config_io, synthetic
+    cfgs = []
+    make = tsys.make_extractor
+    monkeypatch.setattr(tsys, "make_extractor", lambda cfg, *a: cfgs.append(cfg) or make(cfg, *a))
+    s = config_io.SlamSettings(**opts)
+    slam = tsys.MultiColSLAM(rig=small_rig, settings=s, enable_loop_closing=False)
+    mdbrief = s.use_mdbrief and s.learn_masks
+    assert [(c.detector_mask, c.use_dbrief, c.learn_masks, c.n_features, c.fast_th)
+            for c in cfgs] == [(detector, s.use_mdbrief, s.learn_masks, 400, 20),
+                               (detector, s.use_mdbrief, s.learn_masks, 800, 5)]
+    assert slam.tracker.params.masked == slam.mapper.params.masked == mdbrief
+    frame = synthetic.make_renderer(small_rig)(torch.eye(4)).round().to(torch.uint8)
+    assert slam.track(frame, 0.0) is None and slam.state.name == "INITIALIZING"
+    feats = slam.extract(frame)
+    assert int(feats.valid.sum()) > 0
+    assert bool((feats.desc_mask == -1).all()) != mdbrief
 
 
 def test_system_refuses_unported_modes(small_rig):

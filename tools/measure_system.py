@@ -2,11 +2,13 @@
 """Where the time of the port's system path goes, stage by stage.
 
     python3 tools/measure_system.py                 # on the card, from the repo root
+    python3 tools/measure_system.py --mdbrief       # mdBRIEF + learned masks, AGAST 7_12
     python3 tools/measure_system.py --device cpu --frames 12 --profile-frames 1
 
 Runs ``MultiColSLAM.track`` as ``chip_smoke.py`` phase 6 does (default
-SlamSettings, the in-repo rig at 754x480, ``bench_trajectory`` frames
-rendered on the device, synchronous mapping) and prints:
+SlamSettings, or with ``--mdbrief`` phase 9's extractor options; the
+in-repo rig at 754x480, ``bench_trajectory`` frames rendered on the
+device, synchronous mapping) and prints:
 
 - per-frame wall time by kind (init / working / keyframe with its mapping
   pass), median and p90, and the tracker's stage timers;
@@ -60,6 +62,8 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--profile-frames", type=int, default=4)
+    ap.add_argument("--mdbrief", action="store_true",
+                    help="mdBRIEF with learned masks over AGAST 7_12 corners")
     args = ap.parse_args()
 
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
@@ -83,8 +87,10 @@ def main() -> None:
                               check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    opts = dict(use_mdbrief=True, learn_masks=True, use_agast=True,
+                fast_agast_type=2) if args.mdbrief else {}
     slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, enable_loop_closing=False,
-                        device=dev)
+                        device=dev, settings=config_io.SlamSettings(**opts))
     n_all = args.frames + args.profile_frames
     gt = synthetic.bench_trajectory(n_all)
     render = synthetic.make_renderer(slam.rig)
@@ -120,7 +126,7 @@ def main() -> None:
         kinds.append("init" if not was_working else
                      "keyframe" if len(slam.mapping_ms) > n_passes else "working")
     tr = slam.tracker
-    out = {"card": card, "frames": args.frames,
+    out = {"card": card, "settings": opts, "frames": args.frames,
            "init_frame": init_frame,
            "keyframes": slam.map.n_keyframes(), "points": slam.map.n_points(),
            "frame_paths": dict(Counter(tr.frame_path)),
