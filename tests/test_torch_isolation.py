@@ -47,6 +47,8 @@ SLICE_MODULES = [
     "multicol_slam_tpu_torch.utils.config_io",
     "multicol_slam_tpu_torch.utils.synthetic",
     "multicol_slam_tpu_torch.utils.convert",
+    "multicol_slam_tpu_torch.utils.checkpoint",
+    "multicol_slam_tpu_torch.utils.episode",
     "multicol_slam_tpu_torch.utils.timing",
     "multicol_slam_tpu_torch.utils.trajectory",
 ]
