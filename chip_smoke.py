@@ -113,11 +113,37 @@ Phases, each fatal on failure:
      pose must lie within 5 cm and 1 degree of ground truth's step from
      its reference keyframe (the saved map's keyframe sharing the most
      landmarks with it). Frame ms by kind (the seed-42 run alone)
-     and the ms of each ComputeSim3 and CorrectLoop call are printed.
+     and the ms of each ComputeSim3 and CorrectLoop call are printed;
+ 11. the system's other modes on phase 6's frames at the default settings:
+     (a) MultiColSLAM(calib_dir=..., async_mapping=True), its mapper in a
+     thread of its own on a CUDA stream of its own, to phase 6's bars;
+     the two bootstrap passes inline and every later pass on the mapper
+     thread and its stream, the mapper's launches (triangulation and
+     cross-camera on entry B, fuse on entry A) all on that stream, each
+     site equal to its plain version, no failure in the mapper, the queue
+     empty and the thread joined after shutdown; the keyframes refused
+     while the mapper was busy, the interrupted passes and the WORKING
+     frame's median and p90 against phase 6's are printed; (b) a fresh
+     system's track_batch(chunk=8) over the same frames, held to
+     tests/test_chunked_tracking.py's bars against phase 6's per-frame
+     run (the same frames tracked, ATE under twice the per-frame one or 2
+     cm, at least 0.6x the keyframes and 0.5x the points, each pose within
+     0.15 m, at least a third of the steady frames with no dispatch),
+     entry A launched inside the chunk scan at the motion and local-map
+     sites, each equal to plain; ms a frame chunked against per frame and
+     the dispatches a frame are printed; (c) under async mapping, reset()
+     called while a keyframe's pass runs: the pass ends on the map as it
+     was, then the queue, the map, the mapper and the loop closer are
+     empty, and the system initializes again within 20 frames; (d)
+     python3 -m multicol_slam_tpu_torch.cli --synthetic 24 --async-mapping
+     on the card as a subprocess: exit 0, the trajectory and map.npz
+     written, the map loading onto the card, the ATE it prints matched by
+     python3 -m multicol_slam_tpu_torch.evaluate against the ground truth
+     saved here.
 
-Each of phases 6, 7, 8, 9 and 10 sets the launch counts to 0 just before it
-drives its path and reads them just after. For each call site (phases 4,
-6, 7, 8, 9 and 10) the script times, on the card: the
+Each of phases 6, 7, 8, 9, 10 and 11 (a) and (b) sets the launch counts to
+0 just before it drives its path and reads them just after. For each call
+site (phases 4, 6, 7, 8, 9, 10 and 11) the script times, on the card: the
 entry's device time per launch (CUDA-graph replay, so no host enqueue in
 it), one call between two events as earlier versions timed (host enqueue
 included), the plain version, and at the window-gated sites the path the
@@ -147,6 +173,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -178,7 +205,10 @@ SITE_KIND = {"init": "radius", "init_mutual": "radius", "window_search": "radius
              "motion": "radius", "local_map": "radius", "triangulation": "dense",
              "cross_camera": "dense", "fuse": "radius", "reloc_window": "radius",
              "reloc_bow": "radius", "reloc_projection": "radius", "loop_bow": "radius",
-             "guided_sim3": "radius", "support": "radius", "loop_fuse": "radius"}
+             "guided_sim3": "radius", "support": "radius", "loop_fuse": "radius",
+             "chunk_motion": "radius", "chunk_local_map": "radius"}
+# a launch from the async mapper's thread names its site with this suffix
+MAPPER = "_mapper"
 # the sites each phase's path must launch
 SYS_SITES = ("init", "init_mutual", "window_search", "motion", "local_map",
              "triangulation", "cross_camera", "fuse")
@@ -248,6 +278,15 @@ ORGANIC_RESUME_AT = 104
 # the relocalization sites, which are then timed too)
 ORGANIC_SITES = ("init", "init_mutual", "motion", "local_map", "triangulation",
                  "cross_camera", "fuse")
+# phase 11: the sites of the async run, the tracking thread's and the mapper
+# thread's (whose launches must all go on the mapper's stream), and of the
+# chunked run's scan
+ASYNC_MAPPER_SITES = tuple(s + MAPPER for s in ("triangulation", "cross_camera", "fuse"))
+ASYNC_SITES = ("init", "init_mutual", "window_search", "motion", "local_map") + ASYNC_MAPPER_SITES
+CHUNK_SITES = ("chunk_motion", "chunk_local_map")
+CHUNK = 8              # frames a chunk of track_batch
+RESET_AT = 12          # phase 11 (c): frames before the reset with a pass in flight
+CLI_FRAMES = 24        # phase 11 (d): synthetic frames of the CLI run
 # the stages of a ComputeSim3 call timed apart (phase 8); "its_jacobians"
 # is the forward-mode Jacobian time inside optimize_sim3
 SIM3_STAGES = ("draws", "horn", "score", "optimize_sim3", "its_jacobians", "guided", "support")
@@ -436,20 +475,29 @@ def site_entry(knn, site, kind, args, launches, card):
 
 class SiteSpy:
     """Stands in for the matcher module's two kernel entries: names each
-    launch's call site, counts it and keeps each site's first inputs; the
-    wrappers still launch and count."""
+    launch's call site (with MAPPER appended on the async mapper's thread),
+    counts it, keeps each site's first inputs and the CUDA streams its
+    launches went on; the wrappers still launch and count. Launches may
+    come from two threads at once."""
 
     def __init__(self, knn, matcher):
         self.knn, self.matcher = knn, matcher
         self.launches, self.masked, self.args = Counter(), Counter(), {}
+        self.streams = {}
+        self.lock = threading.Lock()
 
     def _call(self, kind, args):
         site = call_site()
-        if site == "init" and self.launches["init"] > self.launches["init_mutual"]:
-            site = "init_mutual"           # the swapped second launch
-        self.launches[site] += 1
-        self.masked[site] += len(args) > (10 if kind == "radius" else 3)
-        self.args.setdefault(site, (kind, args))
+        if threading.current_thread().name == "multicol-mapper":
+            site += MAPPER
+        with self.lock:
+            if site == "init" and self.launches["init"] > self.launches["init_mutual"]:
+                site = "init_mutual"           # the swapped second launch
+            self.launches[site] += 1
+            self.masked[site] += len(args) > (10 if kind == "radius" else 3)
+            self.args.setdefault(site, (kind, args))
+            self.streams.setdefault(site, set()).add(
+                torch.cuda.current_stream().cuda_stream if torch.cuda.is_available() else None)
         return getattr(self.knn, ENTRY[kind])(*args)
 
     def __enter__(self):
@@ -472,7 +520,13 @@ def call_site() -> str:
     site = next((SITES[n] for n in names if n in SITES), None)
     if site is None:
         fail("a Hamming-NN entry was called from an unknown call site")
+    if site in ("motion", "local_map") and "working_scan_chunk" in names:
+        return "chunk_" + site
     return "loop_fuse" if site == "fuse" and "_correct_loop" in names else site
+
+
+def site_kind(site: str) -> str:
+    return SITE_KIND[site[:-len(MAPPER)] if site.endswith(MAPPER) else site]
 
 
 def reset_launches(knn):
@@ -532,7 +586,7 @@ def check_launches(knn, spy, sites, card, tag=""):
     by its site and ``tag``."""
     launches = {k: getattr(knn, ENTRY[k]).launches for k in ENTRY}
     for kind in ENTRY:
-        by_site = sum(n for s, n in spy.launches.items() if SITE_KIND[s] == kind)
+        by_site = sum(n for s, n in spy.launches.items() if site_kind(s) == kind)
         if by_site != launches[kind]:
             fail(f"call-site launches {dict(spy.launches)} do not add up to "
                  f"{ENTRY[kind]}'s {launches[kind]}")
@@ -542,18 +596,19 @@ def check_launches(knn, spy, sites, card, tag=""):
         if not spy.launches[site]:
             fail(f"the kernel was not launched at call site {site}")
         got_kind, args = spy.args[site]
-        if got_kind != SITE_KIND[site]:
-            fail(f"call site {site} used {ENTRY[got_kind]}, want {ENTRY[SITE_KIND[site]]}")
+        if got_kind != site_kind(site):
+            fail(f"call site {site} used {ENTRY[got_kind]}, want {ENTRY[site_kind(site)]}")
         entries.append(site_entry(knn, site + tag, got_kind, args, spy.launches[site], card))
     return entries
 
 
 def timed(fn):
-    """(fn(), host ms around it, ending in a device sync)."""
-    torch.cuda.synchronize()
+    """(fn(), host ms around it, ending in a sync of this thread's stream:
+    an async mapper's stream runs on)."""
+    torch.cuda.current_stream().synchronize()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()
     return out, (time.perf_counter() - t0) * 1e3
 
 
@@ -600,7 +655,8 @@ def system_phase(dev, knn, card):
     """Phase 6: MultiColSLAM.track from the first frame. Returns (the
     system, the frames and ground truth of all three system phases, the
     pose returned at each frame, the kernel JSON entries of the system
-    path's call sites)."""
+    path's call sites, and what phase 11 compares with: the poses, map
+    sizes, dispatches and frame ms by kind of this per-frame run)."""
     from multicol_slam_tpu_torch.models import matcher
     from multicol_slam_tpu_torch.models.loop_closing import MIN_KFS_BETWEEN_LOOPS
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
@@ -671,7 +727,11 @@ def system_phase(dev, knn, card):
         fail("a loop fired on a loop-free trajectory")
     print(f"system loop closer: vocabulary of {lc.voc.n_words} words (k={lc.voc.k}, "
           f"{lc.voc.levels} levels), keyframe database {kfs}, no loop")
-    return slam, frames, gt, returned, check_launches(knn, spy, SYS_SITES, card)
+    ref = dict(poses=[returned[i] for i in range(SYS_FRAMES)], n_kf=m.n_keyframes(),
+               n_pt=m.n_points(), ate=ate, disp=list(tr.dispatches_per_frame),
+               frame_ms={kd: [t for t, k2 in zip(times, kinds) if k2 == kd]
+                         for kd in ("init", "working", "keyframe")})
+    return slam, frames, gt, returned, check_launches(knn, spy, SYS_SITES, card), ref
 
 
 def reloc_phase(knn, card, slam, frames, gt, poses):
@@ -1220,7 +1280,7 @@ def organic_run(dev, knn, seed, on_frame=None):
                                   on_frame=on_frame and (lambda t: on_frame(slam, t)))
     launches = {k: getattr(knn, ENTRY[k]).launches for k in ENTRY}
     for kind in ENTRY:
-        by_site = sum(n for s, n in spy.launches.items() if SITE_KIND[s] == kind)
+        by_site = sum(n for s, n in spy.launches.items() if site_kind(s) == kind)
         if by_site != launches[kind]:
             fail(f"organic seed {seed}: call-site launches {dict(spy.launches)} do not add "
                  f"up to {ENTRY[kind]}'s {launches[kind]}")
@@ -1229,8 +1289,8 @@ def organic_run(dev, knn, seed, on_frame=None):
     if missing:
         fail(f"organic seed {seed}: the kernel was not launched at call sites {missing}")
     for site, (kind, args) in spy.args.items():
-        if kind != SITE_KIND[site]:
-            fail(f"call site {site} used {ENTRY[kind]}, want {ENTRY[SITE_KIND[site]]}")
+        if kind != site_kind(site):
+            fail(f"call site {site} used {ENTRY[kind]}, want {ENTRY[site_kind(site)]}")
         compare(knn, kind, args)
     return slam, res, spy
 
@@ -1374,6 +1434,276 @@ def organic_phase(dev, knn, card):
         kind, args = next(r[2][site] for r in runs.values() if site in r[2])
         entries.append(site_entry(knn, site + "_organic", kind, args, total[site], card))
     return entries
+
+
+def async_phase(dev, knn, card, frames, gt, ref):
+    """Phase 11: (a) async mapping, (b) the chunked path, (c) a reset with
+    a mapping pass in flight, (d) the command line. Returns the kernel JSON
+    entries of (a)'s and (b)'s call sites."""
+    t0 = time.perf_counter()
+    entries = async_mapping_run(dev, knn, card, frames, gt, ref)
+    t1 = time.perf_counter()
+    entries += chunked_run(knn, card, frames, gt, ref)
+    t2 = time.perf_counter()
+    reset_in_flight(dev, frames)
+    t3 = time.perf_counter()
+    cli_run(card)
+    t4 = time.perf_counter()
+    print(f"phase 11 wall s: async {t1 - t0:.3f}, chunked {t2 - t1:.3f}, reset {t3 - t2:.3f}, "
+          f"CLI {t4 - t3:.3f}, all {t4 - t0:.3f} ({card})")
+    return entries
+
+
+def async_mapping_run(dev, knn, card, frames, gt, ref):
+    """Phase 11 (a): MultiColSLAM(async_mapping=True) over phase 6's frames
+    to phase 6's bars; every pass after the bootstrap on the mapper thread
+    and its stream, the mapper's launches on that stream, each site equal
+    to its plain version, no failure in the mapper, the queue empty and the
+    thread joined after shutdown."""
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.models.tracking import TrackState
+    from multicol_slam_tpu_torch.utils import config_io
+    from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
+
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, async_mapping=True)
+    mapper_thread, stream = slam._mapper_thread, slam._mapper_stream.cuda_stream
+    passes, count = [], Counter()
+    process, ba = slam.mapper.process_keyframe, slam.mapper._local_bundle_adjustment
+    refuse = slam.tracker.interrupt_ba_fn
+
+    def recorded_pass(kf):
+        passes.append((threading.get_ident(), torch.cuda.current_stream(dev).cuda_stream))
+        return process(kf)
+
+    def recorded_ba(kf):
+        count["ba"] += 1
+        return ba(kf)
+
+    def refused():
+        count["refused"] += 1
+        return refuse()
+
+    slam.mapper.process_keyframe = recorded_pass
+    slam.mapper._local_bundle_adjustment = recorded_ba
+    slam.tracker.interrupt_ba_fn = refused
+    kinds, times, init_frame, returned = [], [], None, {}
+    reset_launches(knn)
+    with SiteSpy(knn, matcher) as spy:
+        try:
+            for i in range(SYS_FRAMES):
+                was_working = slam.state == TrackState.WORKING
+                n_kf = slam.map.n_keyframes()
+                returned[i], ms = timed(lambda: slam.track(frames[i], i / 25.0))
+                times.append(ms)
+                if returned[i] is not None and init_frame is None:
+                    init_frame = i
+                kinds.append("init" if not was_working else
+                             "keyframe" if slam.map.n_keyframes() > n_kf else "working")
+        finally:
+            t0 = time.perf_counter()
+            slam.shutdown()
+            join_s = time.perf_counter() - t0
+    tr, m = slam.tracker, slam.map
+    if mapper_thread.is_alive() or slam._mapper_thread is not None:
+        fail("the mapper thread did not stop on shutdown")
+    if slam._kf_queue.unfinished_tasks or not slam._kf_queue.empty():
+        fail(f"{slam._kf_queue.unfinished_tasks} keyframes left in the queue after shutdown")
+    main_id = threading.main_thread().ident
+    on_mapper = [p for p in passes[2:] if p == (mapper_thread.ident, stream)]
+    print(f"async: init at frame {init_frame}, {m.n_keyframes()} keyframes, {len(passes)} passes "
+          f"({len(on_mapper)} after the bootstrap on the mapper thread and its stream), "
+          f"{m.n_points()} points, {count['refused']} keyframes refused while the mapper was "
+          f"busy, {len(passes) - count['ba']} passes interrupted, shutdown joined in "
+          f"{join_s:.3f} s, frame paths {dict(Counter(tr.frame_path))}")
+    if init_frame is None or init_frame >= SYS_INIT_BY:
+        fail(f"async: the system did not initialize within {SYS_INIT_BY} frames")
+    after = SYS_FRAMES - init_frame - 1
+    if len(tr.all_poses) - 1 < SYS_WORKING_FRAC * after:
+        fail(f"async: WORKING on {len(tr.all_poses) - 1} of the {after} frames after init")
+    if len(slam.mapping_ms) < SYS_MIN_KFS or m.n_keyframes() < SYS_MIN_KFS:
+        fail(f"async: {m.n_keyframes()} keyframes, {len(slam.mapping_ms)} mapped")
+    if len(passes) < SYS_MIN_KFS or any(p[0] != main_id for p in passes[:2]) \
+            or len(on_mapper) != len(passes) - 2:
+        fail(f"async: the bootstrap passes ran inline and every later pass on the mapper "
+             f"thread's stream, want; got {passes}")
+    poses = np.stack(tr.all_poses)
+    ate = ate_rmse(poses[:, :3, 3], gt[SYS_FRAMES - len(poses):SYS_FRAMES, :3, 3])
+    print(f"async ATE (Sim3-aligned, {len(poses)} frames) {ate:.5f} m (per frame, "
+          f"synchronous mapping: {ref['ate']:.5f} m)")
+    if not np.isfinite(poses).all() or ate > SYS_MAX_ATE:
+        fail(f"async: ATE {ate:.4f} m above {SYS_MAX_ATE} m")
+    for kind in ("working", "keyframe"):
+        xs = [t for t, kd in zip(times, kinds) if kd == kind]
+        print(f"async frame ms, {kind}: {percentiles(xs)}; synchronous mapping (phase 6): "
+              f"{percentiles(ref['frame_ms'][kind])} ({card})")
+    print(f"async mapping_ms per pass: {[round(x, 3) for x in slam.mapping_ms]} ({card})")
+    for site in ASYNC_MAPPER_SITES:
+        if spy.streams.get(site) != {stream}:
+            fail(f"async: the launches at {site} went on streams {spy.streams.get(site)}, "
+                 f"not only the mapper's {stream}")
+    return check_launches(knn, spy, ASYNC_SITES, card, tag="_async")
+
+
+def chunked_run(knn, card, frames, gt, ref):
+    """Phase 11 (b): a fresh system's track_batch(chunk=8) over phase 6's
+    frames, held to tests/test_chunked_tracking.py's bars against phase 6's
+    per-frame run; entry A launched inside the chunk scan at the motion and
+    local-map sites, each equal to its plain version."""
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils import config_io
+    from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
+
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR)
+    chunk_ms = []
+    track_chunk = slam.tracker.track_chunk
+
+    def timed_chunk(images, timestamps):
+        r, ms = timed(lambda: track_chunk(images, timestamps))
+        if r is not None:
+            chunk_ms.append((r[0], ms))
+        return r
+
+    slam.tracker.track_chunk = timed_chunk
+    reset_launches(knn)
+    with SiteSpy(knn, matcher) as spy:
+        res, wall = timed(lambda: slam.track_batch(frames[:SYS_FRAMES],
+                                                   [i / 25.0 for i in range(SYS_FRAMES)],
+                                                   chunk=CHUNK))
+    slam.shutdown()
+    m, tr = slam.map, slam.tracker
+    ref_used = [i for i, M in enumerate(ref["poses"]) if M is not None]
+    used = [i for i, M in enumerate(res) if M is not None]
+    ate = ate_rmse(np.stack([res[i][:3, 3] for i in used]), gt[used, :3, 3])
+    ref_ate = ate_rmse(np.stack([ref["poses"][i][:3, 3] for i in ref_used]), gt[ref_used, :3, 3])
+    steady = tr.dispatches_per_frame[used[0] + 2:] if used else []
+    dist = [float(np.linalg.norm(res[i][:3, 3] - ref["poses"][i][:3, 3])) for i in used
+            if ref["poses"][i] is not None]
+    n_chunk = sum(a for a, _ in chunk_ms)
+    print(f"chunked: {len(used)} frames tracked ({len(ref_used)} per frame), ATE {ate:.5f} m "
+          f"(per frame {ref_ate:.5f}), {m.n_keyframes()} keyframes ({ref['n_kf']}), "
+          f"{m.n_points()} points ({ref['n_pt']}), largest pose distance to the per-frame run "
+          f"{max(dist):.5f} m, frame paths {dict(Counter(tr.frame_path))}, accepted per chunk "
+          f"{[a for a, _ in chunk_ms]}")
+    print(f"chunked ms a frame: {sum(ms for _, ms in chunk_ms) / max(n_chunk, 1):.3f} over the "
+          f"{n_chunk} chunk frames, the whole batch {wall / SYS_FRAMES:.3f}; per frame (phase 6) "
+          f"WORKING {percentiles(ref['frame_ms']['working'])}; dispatches a steady frame "
+          f"{np.mean(steady):.4f} chunked, {np.mean(ref['disp'][ref_used[0] + 2:]):.4f} per "
+          f"frame ({card})")
+    if used != ref_used:
+        fail(f"chunked: tracked frames {used}, per frame {ref_used}")
+    if not ate < max(2.0 * ref_ate, 0.02):
+        fail(f"chunked: ATE {ate:.4f} m against {ref_ate:.4f} per frame")
+    if m.n_keyframes() < 0.6 * ref["n_kf"] or m.n_points() < 0.5 * ref["n_pt"]:
+        fail("chunked: too few keyframes or points against the per-frame run")
+    if max(dist) >= 0.15:
+        fail(f"chunked: a pose {max(dist):.3f} m from the per-frame run's")
+    if steady.count(0) < len(steady) // 3:
+        fail(f"chunked: {steady.count(0)} of {len(steady)} steady frames without a dispatch")
+    return check_launches(knn, spy, CHUNK_SITES, card, tag="_batch")
+
+
+def reset_in_flight(dev, frames):
+    """Phase 11 (c): under async mapping, a keyframe enqueued and reset()
+    called while its pass runs; the pass ends on the uncleared map, then
+    the queue, the map, the mapper and the loop closer are empty; the
+    system initializes again on the next frames."""
+    from multicol_slam_tpu_torch.models.loop_closing import MIN_KFS_BETWEEN_LOOPS
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils import config_io
+
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, async_mapping=True)
+    try:
+        for i in range(RESET_AT):
+            slam.track(frames[i], i / 25.0)
+        slam._kf_queue.join()
+        kf = slam.tracker.last_kf_id
+        if kf < 0:
+            fail(f"reset: no keyframe after {RESET_AT} frames")
+        ended_on = []
+        process = slam.mapper.process_keyframe
+
+        def recorded_pass(k):
+            process(k)
+            ended_on.append(slam.map.n_keyframes())
+
+        slam.mapper.process_keyframe = recorded_pass
+        slam._enqueue_kf(kf)
+        if not slam._mapper_busy.wait(30):
+            fail("reset: the mapper did not start the pass")
+        n_kf = slam.map.n_keyframes()
+        busy = slam._mapper_busy.is_set()
+        _, ms = timed(slam.reset)
+        lc = slam.loop_closer
+        print(f"reset: called with a pass in flight {busy} on a map of {n_kf} keyframes; the "
+              f"pass ended on {ended_on} keyframes; reset took {ms:.3f} ms; after it {slam.map.n_keyframes()} "
+              f"keyframes, {slam._kf_queue.unfinished_tasks} queued")
+        if not busy or ended_on != [n_kf]:
+            fail("reset: the pass in flight did not end on the map as it was")
+        if slam._kf_queue.unfinished_tasks or slam.map.n_keyframes() or slam.mapper.recent_pts:
+            fail("reset: the queue, the map or the mapper's probation list is not empty")
+        if lc is not None and (lc.db.kf_bow or lc.kf_words or lc.consistent_groups
+                               or lc.last_loop_kf != -MIN_KFS_BETWEEN_LOOPS):
+            fail("reset: the loop closer's state was not cleared")
+        slam.mapper.process_keyframe = process
+        again = None
+        for i in range(RESET_AT, RESET_AT + SYS_INIT_BY):
+            if slam.track(frames[i], i / 25.0) is not None:
+                again = i
+                break
+        print(f"reset: initialized again at frame {again}")
+        if again is None:
+            fail(f"reset: no initialization within {SYS_INIT_BY} frames of the reset")
+    finally:
+        slam.shutdown()
+
+
+def cli_run(card):
+    """Phase 11 (d): python3 -m multicol_slam_tpu_torch.cli on the card with
+    async mapping over CLI_FRAMES synthetic frames: exit 0, the trajectory
+    and map.npz written, the map loading onto the card, its ATE printed and
+    matched by python3 -m multicol_slam_tpu_torch.evaluate against the
+    ground truth saved here."""
+    from multicol_slam_tpu_torch import cli
+    from multicol_slam_tpu_torch.utils import checkpoint, config_io
+    from multicol_slam_tpu_torch.utils.trajectory import save_tum
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="cli_")
+    try:
+        cmd = [sys.executable, "-m", "multicol_slam_tpu_torch.cli", "--calib",
+               config_io.SYNTH_RIG_DIR, "--synthetic", str(CLI_FRAMES), "--async-mapping",
+               "--out-dir", out]
+        run, ms = timed(lambda: subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                                               timeout=600))
+        print("\n".join("cli: " + line for line in run.stdout.strip().splitlines()[-6:]))
+        if run.returncode != 0:
+            fail(f"the CLI exited {run.returncode}: {run.stderr[-2000:]}")
+        found = [line for line in run.stdout.splitlines() if line.startswith("ATE RMSE")]
+        if not found:
+            fail("the CLI printed no ATE")
+        ate = float(found[0].split(":")[1].split()[0])
+        traj, npz = os.path.join(out, "MKFTrajectory.txt"), os.path.join(out, "map.npz")
+        m, _ = checkpoint.load_map(npz, device="cuda")
+        if m.n_keyframes() < 2 or not all(
+                t.is_cuda for kf in m.keyframe_ids() for t in m.kf_features[kf]):
+            fail("the CLI's map.npz did not load onto the card with its keyframes")
+        gt_path = os.path.join(out, "gt.txt")
+        save_tum(gt_path, np.arange(CLI_FRAMES) / config_io.SlamSettings().fps,
+                 cli.synthetic_trajectory(CLI_FRAMES))
+        ev = subprocess.run([sys.executable, "-m", "multicol_slam_tpu_torch.evaluate", traj,
+                             gt_path], cwd=repo, capture_output=True, text=True, timeout=120)
+        if ev.returncode != 0:
+            fail(f"evaluate exited {ev.returncode}: {ev.stderr[-2000:]}")
+        rec = json.loads(ev.stdout.strip().splitlines()[-1])
+        n_rows = len(np.loadtxt(traj, ndmin=2))
+        print(f"cli: {ms / 1e3:.3f} s, {m.n_keyframes()} keyframes in map.npz, evaluate {rec} "
+              f"({card})")
+        if rec["n_associated"] != n_rows or abs(rec["ate_rmse_m"] - ate) > 1e-4:
+            fail(f"evaluate scored {rec}, the CLI printed an ATE of {ate} over {n_rows} rows")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def reloc_error(m, poses, gt, at, i):
@@ -1541,11 +1871,12 @@ def main() -> None:
     if launches != 2 * B or knn.hamming_nn.launches:
         fail(f"hamming_nn_radius launched {launches} times and hamming_nn "
              f"{knn.hamming_nn.launches} over {B} frames, want {2 * B} and 0")
-    wf_entries = [site_entry(knn, f"working_{site}", *spy.args[site], spy.launches[site], card)
+    wf_entries = [site_entry(knn, f"working_{site}", *spy.args["chunk_" + site],
+                             spy.launches["chunk_" + site], card)
                   for site in ("motion", "local_map")]
     # the masked (mdBRIEF) variant, off the default path: the local-map
     # inputs with random stability masks, printed only
-    args = spy.args["local_map"][1]
+    args = spy.args["chunk_local_map"][1]
     site_entry(knn, "working_local_map_masked", "radius",
                args + tuple(torch.randint(-2 ** 31, 2 ** 31, args[i].shape, generator=gen,
                                           dtype=torch.int64, device=dev).to(torch.int32)
@@ -1606,7 +1937,7 @@ def main() -> None:
     mark("5 against the CPU")
 
     # -- 6. the system from the first frame ---------------------------------
-    slam, frames, gt, poses, sys_entries = system_phase(dev, knn, card)
+    slam, frames, gt, poses, sys_entries, sys_ref = system_phase(dev, knn, card)
     mark("6 system")
 
     # -- 7. relocalization ---------------------------------------------------
@@ -1625,10 +1956,14 @@ def main() -> None:
     organic_entries = organic_phase(dev, knn, card)
     mark("10 organic loop")
 
+    # -- 11. async mapping, the chunked path, reset in flight, the CLI ---------
+    async_entries = async_phase(dev, knn, card, frames, gt, sys_ref)
+    mark("11 async, chunked, CLI")
+
     print(f"wall s by phase {phase_s}, whole script {time.perf_counter() - t_script:.3f} "
           f"({card})")
     print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries
-                      + md_entries + organic_entries}))
+                      + md_entries + organic_entries + async_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,11 @@ of ``multicol_slam_tpu/ops/pallas/hamming_nn.py`` and share one CUDA core,
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. The kernel is built with ``nvcc`` into ``kernels/build/`` at
-first use, as a plain-C shared library loaded with ctypes.
+first use, as a plain-C shared library loaded with ctypes. The wrappers
+may be called from several threads at once (the tracker and the async
+mapper): the first use builds and loads the library once, under a lock,
+and the launch counters are incremented under one. Each launch goes on
+the calling thread's current stream.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -39,6 +44,8 @@ WORDS = (4, 8, 16)   # descriptor words the kernel is built for (16/32/64 B)
 GATE_ALIGN = 16      # entry B reads gate rows as 16-byte vectors
 
 _lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -54,10 +61,18 @@ def _nvcc() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
+    """Build (once per source version) and load the kernel library; the
+    first callers of several threads build and load it once."""
     global _lib
     if _lib is not None:
         return _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = _build_and_load()
+    return _lib
+
+
+def _build_and_load() -> ctypes.CDLL:
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:12]
@@ -82,7 +97,6 @@ def load_library() -> ctypes.CDLL:
     lib.hamming_nn_launch.restype = i32
     lib.hamming_nn_radius_launch.argtypes = [ptr, i64] + [ptr] * 14 + [i32] * 5 + [ptr]
     lib.hamming_nn_radius_launch.restype = i32
-    _lib = lib
     return lib
 
 
@@ -215,7 +229,8 @@ def hamming_nn(q, db, gate, q_mask=None, db_mask=None):
          _desc_ptr(q), _desc_ptr(db), gate.data_ptr(), gate.stride(1),
          _desc_ptr(q_mask), _desc_ptr(db_mask), *(o.data_ptr() for o in out),
          C, N, M, W, int(bool(masks)))
-    hamming_nn.launches += 1
+    with _count_lock:
+        hamming_nn.launches += 1
     return out
 
 
@@ -259,7 +274,8 @@ def hamming_nn_radius(q, db, q_uv, q_r2, q_lvl_lo, q_lvl_hi, q_ok,
          _desc_ptr(q), q_cstride, _desc_ptr(db), *(t.data_ptr() for t in fields),
          _desc_ptr(q_mask), _desc_ptr(db_mask), *(o.data_ptr() for o in out),
          C, N, M, W, int(bool(masks)))
-    hamming_nn_radius.launches += 1
+    with _count_lock:
+        hamming_nn_radius.launches += 1
     return out
 
 

@@ -10,7 +10,9 @@ keyframes, camera pairs, fuse targets); the list becomes a leading batch
 axis folded into the matcher's camera axis, so each stage is one
 Hamming-NN kernel call and one fetch. The local BA is one Schur LM call
 on a host-assembled static-shape problem; culling is host numpy. The
-mapper runs synchronously when called.
+mapper runs when called: in the tracking thread, or in the system's
+mapper thread under async mapping, where ``interrupt_check`` lets a
+pending keyframe cut a pass short.
 """
 
 from __future__ import annotations
@@ -251,26 +253,38 @@ class LocalMapper:
     def __post_init__(self):
         self.recent_pts: list[tuple[int, int]] = []   # (pt, created_at_kf)
         self.dev = self.rig.M_c.device
+        # InterruptBA (cTracking.cpp:931, cLocalMapping.cpp:512-515): while
+        # this callable reports a pending keyframe, the pass skips its tail
+        # stages (fuse, local BA, keyframe culling). The reference aborts a
+        # running BA (mbAbortBA); here the pass yields between stages
+        self.interrupt_check = None
         # host copy of the rig extrinsics for the point statistics
         self._M_c_np = self.rig.M_c.detach().cpu().numpy().astype(np.float64)
 
     def _to_dev(self, a) -> torch.Tensor:
         return to_device(a, self.dev)
 
+    def _interrupted(self) -> bool:
+        return bool(self.interrupt_check is not None and self.interrupt_check())
+
     # ------------------------------------------------------------------
 
     def process_keyframe(self, kf: int):
         """One local-mapping pass for a new keyframe, in cLocalMapping::
-        Run's order (:69-129). Mapping is synchronous, so no keyframe is
-        ever queued and the reference's interrupt checks before fuse and
-        local BA (:512-515) always pass; they wait for async mapping."""
+        Run's order (:69-129). The front stages always run; fuse runs only
+        while no keyframe is pending, and local BA with keyframe culling
+        only if still uninterrupted after it (the interrupt points of
+        :512-515). With no ``interrupt_check`` (synchronous mapping) every
+        stage runs."""
         self._update_point_stats_for_kf(kf)
         self._cull_map_points(kf)
         self._create_new_map_points(kf)
         self._create_cross_camera_points(kf)
-        self._fuse_in_neighbors(kf)
-        self._local_bundle_adjustment(kf)
-        self._cull_keyframes(kf)
+        if not self._interrupted():
+            self._fuse_in_neighbors(kf)
+        if not self._interrupted():
+            self._local_bundle_adjustment(kf)
+            self._cull_keyframes(kf)
 
     def reset(self):
         """cLocalMapping::RequestReset: drop the probation list so a fresh

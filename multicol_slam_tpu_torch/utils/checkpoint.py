@@ -60,11 +60,15 @@ def save_map(path: str, m: MapStore, extra: dict | None = None) -> None:
     np.savez_compressed(_normalize(path), **arrays)
 
 
-def load_map(path: str, device="cpu") -> tuple[MapStore, dict]:
+def load_map(path: str, device=None) -> tuple[MapStore, dict]:
     """(MapStore, extra) from a checkpoint of either package; keyframe
-    features come back as the port's Features on ``device`` (the CPU by
-    default: the map store is host-side, and a system moves what it
-    needs)."""
+    features come back as the port's Features on ``device``: the card by
+    default, as every entry point of the port, raising without one;
+    ``device="cpu"`` loads them onto the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_map puts keyframe features on the card by default and no "
+                           "CUDA device is available: pass device='cpu' to load onto the CPU")
     with np.load(_normalize(path), allow_pickle=False) as z:
         meta = json.loads(bytes(z["_meta_json"]).decode())
         m = MapStore(capacity_pts=meta["capacity_pts"],

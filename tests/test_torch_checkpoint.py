@@ -55,7 +55,7 @@ def test_port_round_trip(tmp_path):
     _, tm = _maps()
     p = str(tmp_path / "map.npz")
     tckpt.save_map(p, tm, extra={"note": "round trip", "ids": [3, 5]})
-    m2, extra = tckpt.load_map(p)
+    m2, extra = tckpt.load_map(p, device="cpu")
     assert extra == {"note": "round trip", "ids": [3, 5]}
     assert tm.pt_replaced and not tm.kf_valid[3] and m2.kf_features[3] is None
     _assert_same(m2, tm)
@@ -66,7 +66,7 @@ def test_a_jax_map_loads_in_the_port(tmp_path):
     jm, _ = _maps()
     p = str(tmp_path / "jax_map.npz")
     jckpt.save_map(p, jm, extra={"from": "jax"})
-    m2, extra = tckpt.load_map(p)
+    m2, extra = tckpt.load_map(p, device="cpu")
     assert extra == {"from": "jax"}
     # the JAX map through the converters, and the file through the port
     _assert_same(m2, convert.map_from_numpy(jm))
@@ -91,7 +91,7 @@ def test_npz_normalisation(tmp_path, save_as, load_as):
     _, tm = _maps()
     tckpt.save_map(str(tmp_path / save_as), tm)
     assert sorted(os.listdir(tmp_path)) == ["m.npz"]
-    _assert_same(tckpt.load_map(str(tmp_path / load_as))[0], tm)
+    _assert_same(tckpt.load_map(str(tmp_path / load_as), device="cpu")[0], tm)
     _assert_same(convert.map_from_numpy(jckpt.load_map(str(tmp_path / load_as))[0]), tm)
 
 
@@ -104,7 +104,7 @@ def test_resume_from_the_organic_loop_fixture():
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
     from multicol_slam_tpu_torch.utils import config_io
 
-    m, extra = tckpt.load_map(FIXTURE)
+    m, extra = tckpt.load_map(FIXTURE, device="cpu")
     slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, device="cpu",
                         settings=config_io.SlamSettings(**episode.SETTINGS),
                         enable_loop_closing=False, **episode.CAPACITY)

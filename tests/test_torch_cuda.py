@@ -346,3 +346,52 @@ def test_masked_radius_entry_on_real_stability_masks(dev):
     match = tm.search_for_initialization(f1, f2, params)
     cpu = lambda f: type(f)(*(t.cpu() for t in f))
     assert torch.equal(match.cpu(), tm.search_for_initialization(cpu(f1), cpu(f2), params))
+
+
+def test_two_threads_on_their_own_streams_launch_both_entries(dev, monkeypatch):
+    """The tracker and the async mapper launch the kernel from two threads,
+    each on its own stream. Two threads reach the wrapper first at once
+    (the library reset, so the build races), then launch both entries on
+    fresh inputs in turn; every result equals its plain version, the
+    library is built and loaded once, and every launch is counted."""
+    import threading
+    builds = []
+    build = knn._build_and_load
+    monkeypatch.setattr(knn, "_lib", None)
+    monkeypatch.setattr(knn, "_build_and_load", lambda: builds.append(1) or build())
+    before = knn.hamming_nn.launches, knn.hamming_nn_radius.launches
+    barrier, errors, libs = threading.Barrier(2), [], []
+    reps = 20
+
+    def worker(seed):
+        try:
+            stream = torch.cuda.Stream(device=dev)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            case = RC.radius_case("common", seed=seed, C=3, N=800, M=800)
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                libs.append(knn.load_library())
+                for _ in range(reps):
+                    q, db = _words((3, 800, 8), gen, dev), _words((3, 800, 8), gen, dev)
+                    gate = torch.rand((3, 800, 800), generator=gen, device=dev) < 0.05
+                    got_b = knn.hamming_nn(q, db, gate)
+                    args = _radius_args(case, False, dev)
+                    got_a = knn.hamming_nn_radius(*args)
+                    stream.synchronize()
+                    for a, b in zip(got_b, knn.hamming_nn_reference(q, db, gate)):
+                        assert torch.equal(a, b)
+                    for a, b in zip(got_a, knn.hamming_nn_radius_reference(*args)):
+                        assert torch.equal(a, b)
+        except BaseException as exc:       # reported on the test's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(s,)) for s in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert len(builds) == 1 and len(libs) == 2 and libs[0] is libs[1]
+    assert knn.hamming_nn.launches == before[0] + 2 * reps
+    assert knn.hamming_nn_radius.launches == before[1] + 2 * reps

@@ -1,10 +1,10 @@
 """The port stands alone: importing it loads no JAX, the Hamming-NN
 wrappers take their plain versions for CPU tensors without counting a
-kernel launch and raise on other devices, the system runs on the card
-unless asked for the CPU, it builds loop closing and relocalization in
-its default configuration, it runs every extractor option of the
-reference, and it refuses the modes that are not ported yet instead of
-ignoring them."""
+kernel launch and raise on other devices, the system, the map loader and
+the command line run on the card unless asked for the CPU, the system
+builds loop closing and relocalization in its default configuration, it
+runs every extractor option of the reference, and its async mapping and
+chunked modes, refused until they were ported, work."""
 
 import os
 import subprocess
@@ -51,6 +51,9 @@ SLICE_MODULES = [
     "multicol_slam_tpu_torch.utils.episode",
     "multicol_slam_tpu_torch.utils.timing",
     "multicol_slam_tpu_torch.utils.trajectory",
+    "multicol_slam_tpu_torch.utils.viz",
+    "multicol_slam_tpu_torch.cli",
+    "multicol_slam_tpu_torch.evaluate",
 ]
 
 
@@ -202,18 +205,40 @@ def test_system_runs_every_extractor_option(small_rig, monkeypatch, opts, detect
 
 
 def test_system_refuses_unported_modes(small_rig):
+    """async_mapping=True, refused until it was ported, builds the mapper
+    thread and wires its hooks as the JAX package does; shutdown joins it."""
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
-    with pytest.raises(NotImplementedError, match="async_mapping"):
-        MultiColSLAM(rig=small_rig, async_mapping=True)
+    slam = MultiColSLAM(rig=small_rig, async_mapping=True)
+    thread = slam._mapper_thread
+    try:
+        assert thread.is_alive() and thread.daemon
+        tr = slam.tracker
+        assert tr.on_new_keyframe == slam._enqueue_kf
+        assert tr.on_init_keyframes == slam._process_init_kfs
+        assert tr.mapper_idle_fn() and not slam.mapper.interrupt_check()
+        tr.interrupt_ba_fn()
+        assert slam.mapper.interrupt_check()
+    finally:
+        slam.shutdown()
+    assert not thread.is_alive() and slam._kf_queue.unfinished_tasks == 0
+    sync = MultiColSLAM(rig=small_rig)
+    assert sync._mapper_thread is None and sync.tracker.mapper_idle_fn is None
+    assert sync.tracker.on_new_keyframe == sync._process_kf
 
 
 def test_unported_tracker_paths_raise(small_rig):
+    """Relocalization and track_batch, both refused until they were ported,
+    fail cleanly where there is nothing to do."""
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
     slam = MultiColSLAM(rig=small_rig)
-    # relocalization is ported: with no keyframe to match it fails cleanly
+    # with no keyframe to match, relocalization fails cleanly
     assert slam.tracker._relocalize() is False
-    with pytest.raises(NotImplementedError, match="item 10"):
-        slam.track_batch(None, [])
+    h, w = int(small_rig.cams.height[0]), int(small_rig.cams.width[0])
+    assert slam.track_batch(torch.zeros((0, 3, h, w), dtype=torch.uint8), []) == []
+    with pytest.raises(ValueError, match="timestamps"):
+        slam.track_batch(torch.zeros((2, 3, h, w), dtype=torch.uint8), [0.0])
+    # before any frame the chunked path is refused, not run
+    assert slam.tracker.track_chunk(torch.zeros((8, 3, h, w)), [0.0] * 8) is None
     assert slam.state.name == "NO_IMAGES_YET"
 
 
@@ -239,3 +264,42 @@ def test_system_runs_on_the_card_unless_asked_for_the_cpu(
     slam = MultiColSLAM(enable_loop_closing=False, **kw)
     assert slam.device == torch.device(want)
     assert slam.rig.M_c.device.type == want and slam.rig.cams.u0.device.type == want
+
+
+@pytest.mark.parametrize("device,want", [(None, "raises"), ("cpu", "cpu")])
+def test_load_map_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path,
+                                                           device, want):
+    from multicol_slam_tpu_torch.models.map import MapStore
+    from multicol_slam_tpu_torch.utils import checkpoint, synthetic
+    from multicol_slam_tpu_torch.ops.rig import scale_rig
+    from multicol_slam_tpu_torch.utils import config_io
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    rig = scale_rig(config_io.load_mcs(config_io.SYNTH_RIG_DIR)[0], 0.25)
+    slam = MultiColSLAM(rig=rig, enable_loop_closing=False)
+    frame = synthetic.make_renderer(rig)(torch.eye(4)).round().to(torch.uint8)
+    m = MapStore(capacity_pts=16, capacity_kfs=4, n_cams=3, k_per_cam=800)
+    m.alloc_keyframe(np.zeros(6), slam._extract_padded(frame), 0)
+    path = str(tmp_path / "map.npz")
+    checkpoint.save_map(path, m)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = {} if device is None else {"device": device}
+    if want == "raises":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            checkpoint.load_map(path, **kw)
+        return
+    m2, _ = checkpoint.load_map(path, **kw)
+    assert all(t.device.type == want for t in m2.kf_features[0])
+    assert checkpoint.map_differences(m2, m) == []
+
+
+def test_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    from multicol_slam_tpu_torch import cli
+    from multicol_slam_tpu_torch.utils import config_io
+    argv = ["--calib", config_io.SYNTH_RIG_DIR, "--synthetic", "2", "--out-dir",
+            str(tmp_path)]
+    assert cli.parse_args(argv).device == "cuda"
+    assert cli.parse_args(argv + ["--device", "cpu"]).device == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    assert not os.path.exists(tmp_path / "MKFTrajectory.txt")

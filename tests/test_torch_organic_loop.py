@@ -137,7 +137,7 @@ def _replay(lc, lm, seen):
 @pytest.fixture(scope="module")
 def replayed():
     jm, extra = jckpt.load_map(FIXTURE)
-    tm, _ = tckpt.load_map(FIXTURE)
+    tm, _ = tckpt.load_map(FIXTURE, device="cpu")
     voc = _vocabulary(extra["vocabulary"])
     with U.f32():
         jvoc = jv.Vocabulary(**{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
