@@ -139,11 +139,46 @@ Phases, each fatal on failure:
      on the card as a subprocess: exit 0, the trajectory and map.npz
      written, the map loading onto the card, the ATE it prints matched by
      python3 -m multicol_slam_tpu_torch.evaluate against the ground truth
-     saved here.
+     saved here;
+ 12. the stretch configuration (BASELINE.json's fifth) and a dynamic
+     scene: (a) the eight-camera surround rig of tests/test_eight_camera.py
+     (eight copies of the in-repo rig's camera 0 on a 0.3 m ring, 45
+     degrees apart about y), built on the card, its projection checked
+     against the CPU's, then MultiColSLAM(rig=<that ring>,
+     settings=SlamSettings(use_mdbrief=True, learn_masks=True,
+     use_agast=True, fast_agast_type=2), capacity_pts=20000,
+     capacity_kfs=64, enable_loop_closing=False) at full width (8 x
+     754x480, 400 features, 8 levels) over that test's tour (10 lateral
+     frames at 0.08 m, then a 17-frame arc of radius 0.6) in its 2.5 m
+     room, held to its bars: at least 3 keyframes, over 400 points, at
+     least 60% of the frames tracked, and an ATE under RING_MAX_ATE (25
+     cm; that test's 5 cm is printed: neither package meets it at these
+     settings, see RING_MAX_ATE); the system on the card, every launch
+     masked and on the card, each site equal to its plain version; (b)
+     self-calibrating MultiCol BA on that map: every keyframe through
+     assemble_ba_problem, the first two and camera 0 the gauge
+     (SELFCAL_FIXED_KFS; one keyframe fixed is printed), cameras 1-7
+     perturbed by tests/test_optimizer.py's offsets (odd cameras by camera
+     1's, even ones by camera 2's), self_calibrating_bundle_adjustment and
+     bundle_adjustment(free_mc=True): camera 0 unchanged exactly, the cost
+     no higher, every perturbed camera at least 4x closer to where the same
+     BA takes the rig the map was built with, and, with every measurement
+     projected through that rig, at least 4x closer to the rig itself; the
+     extrinsic and intrinsics Jacobians on the card against the CPU's;
+     then refine_intrinsics with every principal point off by (+1.5,
+     -1.0) px, each at least 3x closer; every output on the card, ms per
+     call printed; (c) tests/test_dynamic_scene.py's run on
+     the in-repo rig at full width: MultiColSLAM (loop closing on) at
+     SlamSettings(n_features=300, n_levels=4, fps=8.0) over
+     bench_trajectory(48, radius=0.7) with that test's three textured
+     spheres crossing the room, held to its bars (WORKING share at least
+     0.85 from the first tracked frame, ATE under 4 cm, no loop fired, at
+     least one landmark culled), each site equal to its plain version.
 
-Each of phases 6, 7, 8, 9, 10 and 11 (a) and (b) sets the launch counts to
-0 just before it drives its path and reads them just after. For each call
-site (phases 4, 6, 7, 8, 9, 10 and 11) the script times, on the card: the
+Each of phases 6, 7, 8, 9, 10, 11 (a) and (b) and 12 (a) and (c) sets the
+launch counts to 0 just before it drives its path and reads them just
+after. For each call site (phases 4, 6, 7, 8, 9, 10, 11 and 12) the script
+times, on the card: the
 entry's device time per launch (CUDA-graph replay, so no host enqueue in
 it), one call between two events as earlier versions timed (host enqueue
 included), the plain version, and at the window-gated sites the path the
@@ -287,6 +322,52 @@ CHUNK_SITES = ("chunk_motion", "chunk_local_map")
 CHUNK = 8              # frames a chunk of track_batch
 RESET_AT = 12          # phase 11 (c): frames before the reset with a pass in flight
 CLI_FRAMES = 24        # phase 11 (d): synthetic frames of the CLI run
+# phase 12 (a): the stretch configuration (BASELINE.json's fifth), the
+# eight-camera surround rig of tests/test_eight_camera.py (eight copies of
+# the in-repo rig's camera 0 on a 0.3 m ring, 45 degrees apart) at full
+# width, mdBRIEF with learned masks at the defaults otherwise, in that
+# test's room and over its tour, held to its bars
+RING_CAMS = 8
+RING_RADIUS = 0.3
+RING_ROOM_HALF = 2.5
+RING_LATERAL, RING_ARC = 10, 17   # lateral frames at 0.08 m, then the arc's frames
+RING_SETTINGS = dict(MDBRIEF, fps=8.0)   # the test's frame rate: a keyframe at most 8 frames apart
+RING_MIN_KFS, RING_MIN_PTS, RING_TRACKED_FRAC = 3, 400, 0.6
+# the ring's ATE bar, m. tests/test_eight_camera.py holds 5 cm (RING_TEST_ATE,
+# Lafida's camera at half width with ORB); on this ring at full width with
+# mdBRIEF neither package meets it: the first 5-11 steps after the
+# bootstrap are 1.5-6.0x ground truth's before local BA pulls the scale in
+# (every later step within 10%), so the Sim3-aligned ATE over
+# the tour spans 7.84-21.22 cm in the JAX package (CPU, seeds 42 and 1-4)
+# and 7.27-18.12 cm in the port (card, seeds 42 and 1-7; tools/ring_study.py,
+# PERF.md, PR 8).
+# The bar lies above both spreads; the comparison with 5 cm is printed.
+RING_MAX_ATE, RING_TEST_ATE = 0.25, 0.05
+RING_SITES = ("init", "init_mutual", "motion", "local_map", "triangulation",
+              "cross_camera", "fuse")
+# phase 12 (b): tests/test_optimizer.py's offsets of cameras 1 and 2 (odd
+# cameras take camera 1's, even ones camera 2's), its iterations, and how
+# much closer each perturbed camera and principal point must come back
+SELFCAL_OFFSET = {1: [0.002, -0.002, 0.002, 0.004, -0.004, 0.004],
+                  0: [-0.002, 0.002, 0.001, -0.004, 0.004, 0.002]}
+SELFCAL_ITERS, INTRINSICS_ITERS = 10, 8
+# the keyframes held fixed beside camera 0: with one, the whole map and the
+# extrinsics' translations can scale about camera 0's first centre at no
+# cost, only lambda holds the LM along that free scale, and where it ends
+# changes with the card's unordered sums (phase 12 (b) prints that run);
+# tests/test_optimizer.py fixes two
+SELFCAL_FIXED_KFS = 2
+SELFCAL_MIN_GAIN, INTRINSICS_MIN_GAIN = 4.0, 3.0
+# phase 12 (c): tests/test_dynamic_scene.py's run and bars on the in-repo rig
+DYN_FRAMES, DYN_RADIUS = 48, 0.7
+DYN_SETTINGS = dict(n_features=300, n_levels=4, fps=8.0)
+DYN_SPHERES = [dict(center=(0.9, 0.1, 0.9), velocity=(-0.06, 0.0, -0.03), radius=0.22),
+               dict(center=(-1.0, -0.2, 0.6), velocity=(0.08, 0.01, 0.0), radius=0.18),
+               dict(center=(0.2, 0.4, -1.0), velocity=(0.0, -0.02, 0.07), radius=0.25)]
+DYN_WORKING_FRAC, DYN_MAX_ATE = 0.85, 0.04
+DYN_NOT_HELD = ()       # bars printed and not held
+DYN_SITES = ("init", "init_mutual", "motion", "local_map", "triangulation",
+             "cross_camera", "fuse")
 # the stages of a ComputeSim3 call timed apart (phase 8); "its_jacobians"
 # is the forward-mode Jacobian time inside optimize_sim3
 SIM3_STAGES = ("draws", "horn", "score", "optimize_sim3", "its_jacobians", "guided", "support")
@@ -1706,6 +1787,332 @@ def cli_run(card):
         shutil.rmtree(out, ignore_errors=True)
 
 
+def ring_cayley() -> np.ndarray:
+    """(RING_CAMS, 6) float32 minimal extrinsics of the stretch
+    configuration's ring: RING_RADIUS from the body's origin, yawed 45
+    degrees apart about y (tests/test_eight_camera.py's fixture)."""
+    mc = np.zeros((RING_CAMS, 6))
+    for c in range(RING_CAMS):
+        ang = 2 * np.pi * c / RING_CAMS
+        mc[c, 1] = np.tan(ang / 2.0)           # cayley of a yaw about y
+        mc[c, 3] = RING_RADIUS * np.sin(ang)
+        mc[c, 5] = RING_RADIUS * np.cos(ang)
+    return mc.astype(np.float32)
+
+
+def ring_rig(dev):
+    """The stretch configuration's rig, built on ``dev``: eight copies of
+    the in-repo rig's camera 0 on the ring of ring_cayley() (Lafida's
+    camera in tests/test_eight_camera.py)."""
+    from multicol_slam_tpu_torch.ops.camera import stack_cameras
+    from multicol_slam_tpu_torch.ops.rig import rig_from_cayley
+    from multicol_slam_tpu_torch.utils import config_io
+
+    base = config_io.load_mcs(config_io.SYNTH_RIG_DIR)[0].to(dev)
+    return rig_from_cayley(torch.from_numpy(ring_cayley()).to(dev),
+                           stack_cameras([base.cams.index(0)] * RING_CAMS))
+
+
+def ring_tour():
+    """tests/test_eight_camera.py's tour: RING_LATERAL lateral frames at
+    0.08 m, then a RING_ARC-frame arc of radius 0.6 from the last of them."""
+    from multicol_slam_tpu_torch.utils import synthetic
+
+    lat = synthetic.lateral_trajectory(RING_LATERAL, step=0.08, yaw_rate=0.0)
+    arc = synthetic.smooth_trajectory(RING_ARC, radius=0.6)
+    return np.concatenate([lat, np.einsum("ij,njk->nik", lat[-1], arc[1:])])
+
+
+def ring_phase(dev, knn, card):
+    """Phase 12 (a): the stretch configuration, MultiColSLAM on the ring
+    built on the card at the mdBRIEF settings (RING_SETTINGS), loop
+    closing off, over ring_tour() in the RING_ROOM_HALF room. Holds
+    tests/test_eight_camera.py's bars, its ATE's at RING_MAX_ATE, and the
+    masked launches at every site the run reaches, each equal to its
+    plain version. Returns (the
+    system, the ring, the kernel JSON entries of its call sites)."""
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.ops import rig as rig_ops
+    from multicol_slam_tpu_torch.utils import config_io, synthetic
+    from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
+
+    ring = ring_rig(dev)
+    # the surround ring sees almost every direction (tests/test_eight_camera.py::
+    # test_rig_projection_roundtrip), on the card as on the CPU
+    gen = torch.Generator().manual_seed(0)
+    X = torch.randn((64, 3), generator=gen) * 3
+    uv, ok = rig_ops.world_to_img_rig(ring, torch.eye(4, device=dev), X.to(dev))
+    uv_c, ok_c = rig_ops.world_to_img_rig(ring.to("cpu"), torch.eye(4), X)
+    if uv.device != dev or ok.float().any(0).float().mean() <= 0.9 or not torch.equal(
+            ok.cpu(), ok_c) or not torch.allclose(uv.cpu(), uv_c, rtol=0, atol=1e-2):
+        fail("the ring's projection on the card is wrong")
+
+    settings = config_io.SlamSettings(**RING_SETTINGS)
+    slam = MultiColSLAM(rig=ring, settings=settings, capacity_pts=20000, capacity_kfs=64,
+                        enable_loop_closing=False)
+    if slam.device != dev or slam.rig.M_c.device != dev or \
+            slam.rig.n_cams != RING_CAMS or not slam.tracker.params.masked:
+        fail(f"the ring system runs on {slam.device} with {slam.rig.n_cams} cameras")
+    gt = ring_tour()
+    render = synthetic.make_renderer(ring, room_half=RING_ROOM_HALF)
+    frames = torch.round(render(torch.tensor(gt, dtype=torch.float32, device=dev)))
+    frames = frames.to(torch.uint8)
+    times, kinds, est, used = [], [], [], []
+    reset_launches(knn)
+    with SiteSpy(knn, matcher) as spy:
+        for i in range(len(gt)):
+            n_passes = len(slam.mapping_ms)
+            M, ms = timed(lambda: slam.track(frames[i], i / settings.fps))
+            times.append(ms)
+            kinds.append("init" if not used and M is not None else
+                         slam.tracker.frame_path[-1] if len(slam.mapping_ms) == n_passes
+                         else "keyframe")
+            if M is not None:
+                est.append(np.asarray(M, np.float64)[:3, 3])
+                used.append(i)
+    m = slam.map
+    init = used[0] if used else None
+    print(f"ring: {RING_CAMS} cameras {tuple(frames.shape[-2:])}, {settings.n_features} "
+          f"features, {settings.n_levels} levels, {len(gt)} frames: init at frame {init}, "
+          f"{m.n_keyframes()} keyframes ({len(slam.mapping_ms)} mapping passes), "
+          f"{m.n_points()} points, {len(est)} frames tracked, frame paths "
+          f"{dict(Counter(slam.tracker.frame_path))}")
+    if not est:
+        fail("the ring system never initialized")
+    ate = ate_rmse(np.stack(est), gt[used, :3, 3])
+    print(f"ring: ATE (Sim3-aligned, {len(est)} frames) {ate:.5f} m (held under {RING_MAX_ATE} m; "
+          f"tests/test_eight_camera.py's {RING_TEST_ATE} m met: {bool(ate < RING_TEST_ATE)})")
+    for kind in sorted(set(kinds)):
+        print(f"ring frame ms, {kind}: "
+              f"{percentiles([t for t, k in zip(times, kinds) if k == kind])} ({card})")
+    print(f"ring mapping_ms per pass: {[round(x, 3) for x in slam.mapping_ms]} ({card})")
+    if m.n_keyframes() < RING_MIN_KFS or m.n_points() <= RING_MIN_PTS:
+        fail(f"the ring's map stalled: {m.n_keyframes()} keyframes, {m.n_points()} points")
+    if len(est) < RING_TRACKED_FRAC * len(gt) or not np.isfinite(ate) or ate >= RING_MAX_ATE:
+        fail(f"the ring tracked {len(est)} of {len(gt)} frames, ATE {ate:.4f} m")
+
+    # masked matching at every site the run reached
+    print(f"ring: launches by call site {dict(spy.launches)}, of them with the masks "
+          f"{dict(spy.masked)}")
+    for site, n in spy.launches.items():
+        if spy.masked[site] != n:
+            fail(f"ring: call site {site} passed masks on {spy.masked[site]} of {n} launches")
+        if any(torch.is_tensor(a) and a.device != dev for a in spy.args[site][1]):
+            fail(f"ring: call site {site} launched on tensors off the card")
+    sites = RING_SITES + tuple(sorted(set(spy.launches) - set(RING_SITES)))
+    return slam, ring, check_launches(knn, spy, sites, card, tag="_ring")
+
+
+def robust_cost(chi2, obs):
+    from multicol_slam_tpu_torch.models.optimizer import HUBER_GLOBAL as h
+    e = torch.sqrt(chi2.double())
+    rho = torch.where(e <= h, e * e, 2 * h * e - h * h)
+    return float(torch.where(obs.valid, rho, torch.zeros_like(rho)).sum())
+
+
+def selfcal_phase(dev, card, slam, ring):
+    """Phase 12 (b): self-calibrating MultiCol BA and the intrinsics
+    refinement on the ring's map, on the card. Every keyframe goes
+    through assemble_ba_problem, cameras 1-7 are perturbed by
+    tests/test_optimizer.py's offsets (odd cameras by camera 1's, even
+    ones by camera 2's), and the BA runs in the gauge of that test: the
+    first two keyframes and camera 0 fixed (with one keyframe fixed the
+    map's scale is free: see SELFCAL_FIXED_KFS). Holds, on the map as
+    tracked: camera 0 unchanged exactly, the cost no higher, and every
+    perturbed camera SELFCAL_MIN_GAIN times closer to where the same BA
+    takes the rig the map was built with; on the same keyframes, points
+    and observations with every measurement projected through that rig:
+    every perturbed camera SELFCAL_MIN_GAIN times closer to the rig. Then
+    refine_intrinsics on the map as tracked with every principal point
+    off by (+1.5, -1.0) px: each INTRINSICS_MIN_GAIN times closer. Every
+    output on the card; ms per call printed."""
+    from multicol_slam_tpu_torch.models import optimizer as opt
+    from multicol_slam_tpu_torch.models.local_mapping import assemble_ba_problem
+    from multicol_slam_tpu_torch.ops.camera import world_to_img
+    from multicol_slam_tpu_torch.ops.geometry import cayley2hom, inv_se3
+    from multicol_slam_tpu_torch.ops.rig import Rig, rig_from_cayley
+
+    m = slam.map
+    kfs = sorted(int(k) for k in m.keyframe_ids())
+
+    def problem_with(n_fixed):
+        fixed = np.zeros(len(kfs), bool)
+        fixed[:n_fixed] = True
+        problem, mt0, X0, pts, _ = assemble_ba_problem(
+            m, kfs, fixed, slam.settings.scale_factor, device=dev)
+        return problem, torch.from_numpy(mt0).to(dev), torch.from_numpy(X0).to(dev), len(pts)
+
+    def error(mc, ref):
+        """Per camera sqrt(|t - t_ref|^2 + angle^2) (m, rad) between the
+        extrinsics mc and ref (C, 6), from their matrices in float64: camera
+        4 sits at a yaw of 180 degrees, where the Cayley vector is singular
+        (its c1 is tan(pi/2)), so a difference of Cayley vectors means
+        nothing there."""
+        M, R = cayley2hom(mc.double()), cayley2hom(ref.double())
+        dR = R[:, :3, :3].transpose(-1, -2) @ M[:, :3, :3] - torch.eye(3, dtype=M.dtype,
+                                                                        device=M.device)
+        ang = dR.flatten(1).norm(dim=-1) / np.sqrt(2.0)
+        return torch.sqrt(ang ** 2 + (M[:, :3, 3] - R[:, :3, 3]).norm(dim=-1) ** 2)
+
+    dist = lambda mc, ref: [round(float(x), 6) for x in error(mc, ref)]
+    problem, mt0, X0, n_pts = problem_with(SELFCAL_FIXED_KFS)
+    obs = problem.obs
+    mc_true = ring.M_c_min
+    off = torch.tensor([SELFCAL_OFFSET[c % 2] for c in range(RING_CAMS)], dtype=torch.float32,
+                       device=dev)
+    off[0] = 0.0
+    rig_pert = rig_from_cayley(mc_true + off, ring.cams)
+    mc_pert = rig_pert.M_c_min
+    print(f"selfcal: {len(kfs)} keyframes (padded to {mt0.shape[0]}), {n_pts} points "
+          f"(padded to {X0.shape[0]}), {int(obs.valid.sum())} observations, "
+          f"{problem.pt_obs.shape[1]} a point at most; cameras 1-7 start "
+          f"{dist(mc_pert, mc_true)} from the rig the map was built with")
+
+    def selfcal(rig, prob, label, warm=False):
+        out, ms = timed(lambda: opt.self_calibrating_bundle_adjustment(
+            rig, mt0, X0, prob, iters=SELFCAL_ITERS))
+        msg = f"ms cold {ms:.3f}"
+        if warm:
+            msg += f", warm {timed(lambda: opt.self_calibrating_bundle_adjustment(rig, mt0, X0, prob, iters=SELFCAL_ITERS))[1]:.3f}"
+        if any(t.device != dev for t in out):
+            fail(f"selfcal: an output of the self-calibrating BA ({label}) lies off the card")
+        cost0 = robust_cost(opt.self_calibrating_bundle_adjustment(
+            rig, mt0, X0, prob, iters=0)[3], prob.obs)
+        print(f"selfcal: {label}, {SELFCAL_ITERS} iterations, {msg}; robust cost {cost0:.3f} "
+              f"-> {robust_cost(out[3], prob.obs):.3f} ({card})")
+        return out, cost0
+
+    # one keyframe fixed, as a local BA would: printed, not held
+    p1 = problem_with(1)[0]
+    (_, _, mc1, _), _ = selfcal(rig_pert, p1, "the first keyframe and camera 0 fixed")
+    print(f"selfcal: with one keyframe fixed the cameras end {dist(mc1, mc_true)} from the "
+          f"rig the map was built with (not held: the scale is free)")
+
+    # the map as tracked, from the perturbed rig and from the rig it was built with
+    (mt, X, mc, chi2), cost0 = selfcal(rig_pert, problem, "perturbed rig", warm=True)
+    (_, _, mc_ref, _), _ = selfcal(ring, problem, "the rig the map was built with")
+    (r_mt, r_X, r_chi2), ms_r = timed(lambda: opt.bundle_adjustment(
+        rig_pert, mt0, X0, problem, iters=SELFCAL_ITERS, free_mc=True))
+    if any(t.device != dev for t in (r_mt, r_X, r_chi2)):
+        fail("selfcal: an output of bundle_adjustment(free_mc=True) lies off the card")
+    cost1, cost_r = robust_cost(chi2, obs), robust_cost(r_chi2, obs)
+    before, after = error(mc_pert, mc_ref), error(mc, mc_ref)
+    print(f"selfcal: from the perturbed rig the cameras end {dist(mc, mc_ref)} from where the "
+          f"BA takes the rig the map was built with (started {dist(mc_pert, mc_ref)}), "
+          f"{dist(mc, mc_true)} from that rig, which itself ends {dist(mc_ref, mc_true)} from "
+          f"it; bundle_adjustment(free_mc=True) {ms_r:.3f} ms, cost {cost_r:.3f}, poses within "
+          f"{float((r_mt - mt).abs().max()):.2e} ({card})")
+    if not torch.equal(mc[0], mc_pert[0]) or not torch.equal(mc_ref[0], mc_true[0]):
+        fail("selfcal: camera 0, the gauge, moved")
+    if not bool((SELFCAL_MIN_GAIN * after[1:] <= before[1:]).all()):
+        fail(f"selfcal: a perturbed camera came back less than {SELFCAL_MIN_GAIN}x closer to "
+             f"the BA's calibration from the rig the map was built with")
+    if not cost1 <= cost0 or not cost_r <= cost0:
+        fail(f"selfcal: the cost rose from {cost0} to {cost1} / {cost_r}")
+
+    # the same keyframes, points and observations, measured through the rig
+    kf, cam, pt = obs.kf.long(), obs.cam.long(), obs.pt.long()
+    cams = ring.cams.index(cam)
+    T = inv_se3(cayley2hom(mt0[kf]) @ cayley2hom(mc_true[cam]))
+    Xc = torch.einsum("kij,kj->ki", T[:, :3, :3], X0[pt]) + T[:, :3, 3]
+    exact = problem._replace(obs=obs._replace(uv=world_to_img(cams, Xc)))
+    (_, _, mc_x, _), _ = selfcal(rig_pert, exact, "measurements projected through the rig")
+    before_x, after_x = error(mc_pert, mc_true), error(mc_x, mc_true)
+    print(f"selfcal: on measurements projected through the rig the cameras end "
+          f"{dist(mc_x, mc_true)} from it ({card})")
+    if not torch.equal(mc_x[0], mc_pert[0]) or not bool(
+            (SELFCAL_MIN_GAIN * after_x[1:] <= before_x[1:]).all()):
+        fail(f"selfcal: on exact measurements a perturbed camera came back less than "
+             f"{SELFCAL_MIN_GAIN}x closer to the rig")
+
+    # the two new Jacobians on the card against the CPU, on the problem's rows
+    cpu = lambda t: t.cpu()
+    for name, a, b in (
+            ("extrinsic", opt.extrinsic_jacobian(mt0[kf], mc_true[cam], X0[pt], cams),
+             opt.extrinsic_jacobian(cpu(mt0[kf]), cpu(mc_true[cam]), cpu(X0[pt]),
+                                    cams.to("cpu"))),
+            ("intrinsics", opt.intrinsics_jacobian(Xc, cams),
+             opt.intrinsics_jacobian(cpu(Xc), cams.to("cpu")))):
+        err = float(((a.cpu() - b).abs() / (b.abs().amax(dim=(1, 2), keepdim=True) + 1e-12)).max())
+        print(f"selfcal: {name}_jacobian {tuple(a.shape)} on the card against the CPU: max "
+              f"relative difference {err:.2e}")
+        if a.device != dev or not err < 1e-3:
+            fail(f"selfcal: {name}_jacobian on the card differs from the CPU's")
+
+    # the intrinsics: every camera's principal point off by (+1.5, -1.0) px
+    v_true = ring.cams.to_vector17()
+    v_pert = v_true.clone()
+    v_pert[:, 3] += 1.5
+    v_pert[:, 4] -= 1.0
+    rig_i = Rig(M_c=ring.M_c, cams=ring.cams.with_vector17(v_pert))
+    (cams_r, v17, cost_i), cold = timed(lambda: opt.refine_intrinsics(
+        rig_i, mt0, X0, obs, iters=INTRINSICS_ITERS))
+    _, warm = timed(lambda: opt.refine_intrinsics(rig_i, mt0, X0, obs, iters=INTRINSICS_ITERS))
+    if any(t.device != dev for t in (v17, cost_i, *cams_r)):
+        fail("selfcal: an output of refine_intrinsics lies off the card")
+    d_u, d_v = (v17[:, 3] - v_true[:, 3]).abs(), (v17[:, 4] - v_true[:, 4]).abs()
+    print(f"selfcal: refine_intrinsics {INTRINSICS_ITERS} iterations, ms cold {cold:.3f}, warm "
+          f"{warm:.3f}; |u0 - truth| per camera {[round(float(x), 4) for x in d_u]} px (from "
+          f"1.5), |v0 - truth| {[round(float(x), 4) for x in d_v]} px (from 1.0); cost "
+          f"{float(cost_i):.3f} ({card})")
+    if not bool((INTRINSICS_MIN_GAIN * d_u <= 1.5).all() & (INTRINSICS_MIN_GAIN * d_v <= 1.0).all()):
+        fail(f"selfcal: a principal point came back less than {INTRINSICS_MIN_GAIN}x closer")
+
+
+def dynamic_phase(dev, knn, card):
+    """Phase 12 (c): tests/test_dynamic_scene.py's run on the in-repo rig
+    at full width on the card: MultiColSLAM (loop closing on) at
+    DYN_SETTINGS over bench_trajectory(DYN_FRAMES, radius=DYN_RADIUS)
+    with DYN_SPHERES crossing the room. Holds that test's bars (WORKING
+    share from the first tracked frame, ATE, no loop fired, a landmark
+    culled) and the launches of its path, each site equal to plain.
+    Returns the kernel JSON entries of its call sites."""
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils import config_io, synthetic
+    from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
+
+    settings = config_io.SlamSettings(**DYN_SETTINGS)
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, settings=settings,
+                        capacity_pts=25000, capacity_kfs=64)
+    if slam.rig.M_c.device != dev or not slam._enable_loops:
+        fail("the dynamic-scene system is not on the card with loop closing on")
+    gt = synthetic.bench_trajectory(DYN_FRAMES, radius=DYN_RADIUS)
+    render = synthetic.make_renderer(slam.rig, distractors=DYN_SPHERES)
+    frames = torch.round(render(torch.tensor(gt, dtype=torch.float32, device=dev),
+                                time=torch.arange(DYN_FRAMES, dtype=torch.float32)))
+    frames = frames.to(torch.uint8)
+    est, used, times = [], [], []
+    reset_launches(knn)
+    with SiteSpy(knn, matcher) as spy:
+        for t in range(DYN_FRAMES):
+            M, ms = timed(lambda: slam.track(frames[t], t / settings.fps))
+            times.append(ms)
+            if M is not None:
+                est.append(np.asarray(M, np.float64)[:3, 3])
+                used.append(t)
+    if not used:
+        fail(f"the dynamic-scene system never tracked: {slam.tracker.frame_path}")
+    m, lc = slam.map, slam.loop_closer
+    frac = len(est) / (DYN_FRAMES - used[0])
+    ate = ate_rmse(np.stack(est), gt[used, :3, 3])
+    culled = int((~m.pt_valid[:m._next_pt]).sum())
+    fired = lc is not None and lc.last_loop_kf >= 0
+    bars = {"working": frac >= DYN_WORKING_FRAC, "ate": bool(ate < DYN_MAX_ATE),
+            "no_loop": not fired, "culled": culled > 0}
+    print(f"dynamic: {DYN_FRAMES} frames, first tracked {used[0]}, WORKING share {frac:.4f}, "
+          f"ATE {ate:.5f} m, {m.n_keyframes()} keyframes, {m.n_points()} points, {culled} "
+          f"landmarks culled, loop fired {fired}; frame paths "
+          f"{dict(Counter(slam.tracker.frame_path))}; frame ms {percentiles(times)}; bars "
+          f"{bars} ({card})")
+    missed = [k for k, ok in bars.items() if not ok and k not in DYN_NOT_HELD]
+    if missed:
+        fail(f"the dynamic scene missed the bars {missed}")
+    sites = DYN_SITES + tuple(sorted(set(spy.launches) - set(DYN_SITES)))
+    return check_launches(knn, spy, sites, card, tag="_dynamic")
+
+
 def reloc_error(m, poses, gt, at, i):
     """(m, degrees): frame i's returned pose (poses: frame -> (4, 4) or
     None) against ground truth, both relative to frame at - 1: its pose in
@@ -1960,10 +2367,19 @@ def main() -> None:
     async_entries = async_phase(dev, knn, card, frames, gt, sys_ref)
     mark("11 async, chunked, CLI")
 
+    # -- 12. the stretch configuration, self-calibration, a dynamic scene -----
+    ring_slam, ring, ring_entries = ring_phase(dev, knn, card)
+    mark("12a eight-camera ring")
+    selfcal_phase(dev, card, ring_slam, ring)
+    mark("12b self-calibrating BA")
+    dyn_entries = dynamic_phase(dev, knn, card)
+    mark("12c dynamic scene")
+
     print(f"wall s by phase {phase_s}, whole script {time.perf_counter() - t_script:.3f} "
           f"({card})")
     print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries
-                      + md_entries + organic_entries + async_entries}))
+                      + md_entries + organic_entries + async_entries + ring_entries
+                      + dyn_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

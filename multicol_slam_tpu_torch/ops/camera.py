@@ -46,6 +46,20 @@ class CameraModel(NamedTuple):
         """First forward poly coefficient a0 (cam_model_omni.h:100)."""
         return self.poly[..., 0]
 
+    def to_vector17(self) -> torch.Tensor:
+        """[c, d, e, u0, v0, inv_poly[:12]] (..., 17): the 17 intrinsics
+        bundle adjustment refines (cam_model_omni.h:189-204 toVector)."""
+        return torch.cat([torch.stack([self.c, self.d, self.e, self.u0, self.v0], -1),
+                          self.inv_poly[..., :12]], -1)
+
+    def with_vector17(self, v: torch.Tensor) -> "CameraModel":
+        """A new model carrying ``v``'s 17 intrinsics; this model's
+        ``inv_poly`` is not written (a fresh tensor, as JAX's ``.at[].set``)."""
+        inv_poly = torch.cat([v[..., 5:17].to(self.inv_poly.dtype),
+                              self.inv_poly[..., 12:]], -1)
+        return self._replace(c=v[..., 0], d=v[..., 1], e=v[..., 2], u0=v[..., 3],
+                             v0=v[..., 4], inv_poly=inv_poly)
+
     def to(self, device) -> "CameraModel":
         return CameraModel(*(f.to(device) for f in self))
 

@@ -303,3 +303,71 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(argv)
     assert not os.path.exists(tmp_path / "MKFTrajectory.txt")
+
+
+# slice 8: the self-calibrating optimizers, their Jacobians and the rig
+# helpers make every tensor on their inputs' device and never copy to the host
+SELF_CAL = [("multicol_slam_tpu_torch.models.optimizer", name) for name in (
+    "self_calibrating_bundle_adjustment", "refine_intrinsics", "extrinsic_jacobian",
+    "intrinsics_jacobian")] + [("multicol_slam_tpu_torch.ops.rig", name) for name in (
+        "make_rig", "world_to_cam_frame", "world_to_img_rig", "img_to_world_rig",
+        "rays_to_body", "cam_centers_world")]
+FACTORIES = {"zeros", "ones", "full", "empty", "eye", "arange", "tensor", "linspace",
+             "as_tensor", "randn", "rand"}
+
+
+@pytest.mark.parametrize("module,name", SELF_CAL)
+def test_self_calibration_makes_tensors_on_the_inputs_device(module, name):
+    """No ``.cpu()``, ``.item()`` or ``.numpy()`` in the function, and every
+    tensor factory in it names a device (read from the source)."""
+    import ast
+    import importlib
+    import inspect
+    import textwrap
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(
+        getattr(importlib.import_module(module), name))))
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call) or not isinstance(node.func, ast.Attribute):
+            continue
+        assert node.func.attr not in ("cpu", "item", "numpy", "tolist"), \
+            f"{name} calls .{node.func.attr}() at line {node.lineno}"
+        if (isinstance(node.func.value, ast.Name) and node.func.value.id == "torch"
+                and node.func.attr in FACTORIES):
+            assert any(k.arg == "device" for k in node.keywords), \
+                f"{name}: torch.{node.func.attr} without device= at line {node.lineno}"
+
+
+def test_self_calibration_runs_on_the_inputs_device():
+    """The same functions on tensors of the meta device: every output lies
+    there (a tensor made on the CPU would not mix with them, and a copy to
+    the host would fail)."""
+    from multicol_slam_tpu_torch.models import optimizer as opt
+    from multicol_slam_tpu_torch.ops import rig as rig_ops
+    from multicol_slam_tpu_torch.utils import config_io
+
+    m = torch.device("meta")
+    rig = config_io.load_mcs(config_io.SYNTH_RIG_DIR)[0].to(m)
+    N, P, K, M = 4, 20, 61, 5
+    z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=m)
+    obs = opt.BAObservations(uv=z(K, 2), kf=z(K, dtype=torch.int32), cam=z(K, dtype=torch.int32),
+                             pt=z(K, dtype=torch.int32), inv_sigma2=z(K),
+                             valid=z(K, dtype=torch.bool))
+    prob = opt.BAProblem(obs=obs, pt_obs=z(P, M, dtype=torch.int32),
+                         fixed_kf=z(N, dtype=torch.bool), fixed_pt=z(P, dtype=torch.bool))
+    cams = rig.cams.index(obs.cam.long())
+    M_t = torch.eye(4, device=m)
+    outs = [*opt.self_calibrating_bundle_adjustment(rig, z(N, 6), z(P, 3), prob, iters=2),
+            *opt.bundle_adjustment(rig, z(N, 6), z(P, 3), prob, iters=2, free_mc=True),
+            *opt.refine_intrinsics(rig, z(N, 6), z(P, 3), obs, iters=2)[1:],
+            *opt.refine_intrinsics(rig, z(N, 6), z(P, 3), obs, iters=2)[0],
+            opt.extrinsic_jacobian(z(6), z(K, 6), z(K, 3), cams),
+            opt.intrinsics_jacobian(z(K, 3), cams),
+            rig_ops.world_to_cam_frame(M_t, rig.M_c, z(P, 3)),
+            *rig_ops.world_to_img_rig(rig, M_t, z(P, 3)),
+            rig_ops.img_to_world_rig(rig, z(3, P, 2)),
+            rig_ops.rays_to_body(rig, z(3, P, 3)),
+            rig_ops.cam_centers_world(M_t, rig.M_c),
+            rig_ops.make_rig([rig.M_c[c] for c in range(3)],
+                             [rig.cams.index(c) for c in range(3)]).M_c]
+    assert all(t.device == m for t in outs), [t.device for t in outs]
