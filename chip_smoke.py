@@ -174,14 +174,35 @@ Phases, each fatal on failure:
      spheres crossing the room, held to its bars (WORKING share at least
      0.85 from the first tracked frame, ATE under 4 cm, no loop fired, at
      least one landmark culled), each site equal to its plain version.
+ 13. the two-room tour and the sharded global BA: (a) tests/test_two_room.py's
+     run on the in-repo rig at full width: MultiColSLAM (loop closing on)
+     at SlamSettings(n_features=250, n_levels=4, fps=8.0),
+     capacity_pts=25000, capacity_kfs=96, over 64 frames of
+     two_room_loop_trajectory through the door wall, held to that test's
+     bars (WORKING share from the first WORKING frame above 0.9, at least
+     10 keyframes, more than 500 points, no loop fired), each site equal
+     to its plain version, frame ms by kind printed; (b) on copies of the
+     two-room map and of phase 6's map (as phase 8 leaves it),
+     run_global_ba with the default mesh (one card: the single-device
+     branch) and with devices=[cuda:0] * D for D = 2, 4, 8: the summed
+     chi2 within 2% of the single-device run's and keyframe 0 unmoved, the
+     largest pose and point differences printed; the same problems in
+     float64 through make_sharded_ba and bundle_adjustment within 1e-8;
+     (c) the JAX package's map-scale dry run (make_ba_problem(rig, 64,
+     8192, max_obs_per_pt=8), about 59k observations, float32, 4
+     iterations): the sharded BA at D = 8 within 2% of the single path's
+     robust cost, both below 0.8 of the start; the per-iteration costs of
+     make_sharded_ba_step and the single path, each step taken or not; ms
+     per iteration of the single path and of D = 1, 2, 4, 8 on the one
+     card (the cost of sharding: the shards share one card), the peak
+     memory of the D = 8 run; every output on the card.
 
-Each of phases 6, 7, 8, 9, 10, 11 (a) and (b) and 12 (a) and (c) sets the
-launch counts to 0 just before it drives its path and reads them just
-after. For each call site (phases 4, 6, 7, 8, 9, 10, 11 and 12) the script
-times, on the card: the
-entry's device time per launch (CUDA-graph replay, so no host enqueue in
-it), one call between two events as earlier versions timed (host enqueue
-included), the plain version, and at the window-gated sites the path the
+Each of phases 6, 7, 8, 9, 10, 11 (a) and (b), 12 (a) and (c) and 13 (a)
+sets the launch counts to 0 just before it drives its path and reads them
+just after. For each call site (phases 4, 6-13) the script times, on the
+card: the entry's device time per launch (CUDA-graph replay, so no host
+enqueue in it), one call between two events as earlier versions timed
+(host enqueue included), the plain version, and at the window-gated sites the path the
 site ran before the in-kernel gate (the torch gate build plus the
 dense-gate entry). It computes each site's bound from the inputs (bytes
 over 3.35 TB/s, float operations over 67 TFLOP/s, popcounts over 16 per
@@ -368,6 +389,29 @@ DYN_WORKING_FRAC, DYN_MAX_ATE = 0.85, 0.04
 DYN_NOT_HELD = ()       # bars printed and not held
 DYN_SITES = ("init", "init_mutual", "motion", "local_map", "triangulation",
              "cross_camera", "fuse")
+# phase 13 (a): tests/test_two_room.py's tour on the in-repo rig at full
+# width (Lafida is absent), held to that test's bars
+TWO_ROOM_SETTINGS = dict(n_features=250, n_levels=4, fps=8.0)
+TWO_ROOM_FRAMES = 64
+TWO_ROOM_HALF = (2.2, 2.2, 3.6)
+TWO_ROOM_DOOR = dict(z=0.0, door_half_x=0.8, door_half_y=1.3)
+TWO_ROOM_WORKING_FRAC, TWO_ROOM_MIN_KFS, TWO_ROOM_MIN_PTS = 0.9, 10, 500
+TWO_ROOM_SITES = ("init", "init_mutual", "motion", "local_map", "triangulation",
+                  "cross_camera", "fuse")
+# phase 13 (b), (c): the sharded global BA. Shards share the one card, so
+# they measure what sharding costs, not how it scales. Float32 runs are
+# held at the objective, the JAX package's documented bound (VERDICT.md:
+# 62-64: sums in another order flip accept / reject in a flat valley);
+# float64 runs element-wise, at tests/test_sharding.py:193-194's bar
+SHARDS = (2, 4, 8)
+GBA_ITERS = 10
+SHARD_MAX_REL = 0.02
+SHARD_F64_TOL = 1e-8
+# (c) the JAX package's map-scale dry run (__graft_entry__.py:76-96): its
+# problem, offsets (poses 0.002, points 0.01, keyframe 0 fixed) and
+# iterations, and its bar that the LM lowers the cost below 0.8 of the start
+MAP_KF, MAP_PT, MAP_OBS, MAP_ITERS = 64, 8192, 8, 4
+MAP_MIN_GAIN = 0.8
 # the stages of a ComputeSim3 call timed apart (phase 8); "its_jacobians"
 # is the forward-mode Jacobian time inside optimize_sim3
 SIM3_STAGES = ("draws", "horn", "score", "optimize_sim3", "its_jacobians", "guided", "support")
@@ -765,8 +809,7 @@ def system_phase(dev, knn, card):
             times.append(ms)
             if returned[i] is not None and init_frame is None:
                 init_frame = i
-            kinds.append("init" if not was_working else
-                         "keyframe" if len(slam.mapping_ms) > n_passes else "working")
+            kinds.append(frame_kind(slam, was_working, n_passes))
 
     tr = slam.tracker
     m = slam.map
@@ -2113,6 +2156,280 @@ def dynamic_phase(dev, knn, card):
     return check_launches(knn, spy, sites, card, tag="_dynamic")
 
 
+def frame_kind(slam, was_working, n_passes):
+    """A frame's kind once tracked: init, keyframe (a mapping pass ran) or
+    working."""
+    return ("init" if not was_working else
+            "keyframe" if len(slam.mapping_ms) > n_passes else "working")
+
+
+def two_room_phase(dev, knn, card):
+    """Phase 13 (a): tests/test_two_room.py's tour on the card at full
+    width: MultiColSLAM (loop closing on) at TWO_ROOM_SETTINGS over the
+    two-room tour through the door wall. Holds that test's bars (WORKING
+    share from the first WORKING frame, keyframes, points, no loop fired)
+    and the launches of its path, each site equal to plain. Returns (the
+    system, the kernel JSON entries of its call sites)."""
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.models.tracking import TrackState
+    from multicol_slam_tpu_torch.utils import config_io, synthetic
+
+    settings = config_io.SlamSettings(**TWO_ROOM_SETTINGS)
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, settings=settings,
+                        capacity_pts=25000, capacity_kfs=96, enable_loop_closing=True)
+    if slam.rig.M_c.device != dev or not slam._enable_loops:
+        fail("the two-room system is not on the card with loop closing on")
+    gt = synthetic.two_room_loop_trajectory(TWO_ROOM_FRAMES)
+    render = synthetic.make_renderer(slam.rig, room_half=TWO_ROOM_HALF, door_wall=TWO_ROOM_DOOR)
+    frames = torch.round(render(torch.tensor(gt, dtype=torch.float32, device=dev)))
+    frames = frames.to(torch.uint8)
+    states, times, kinds = [], [], []
+    reset_launches(knn)
+    with SiteSpy(knn, matcher) as spy:
+        for t in range(TWO_ROOM_FRAMES):
+            was_working, n_passes = slam.state == TrackState.WORKING, len(slam.mapping_ms)
+            _, ms = timed(lambda: slam.track(frames[t], t / settings.fps))
+            states.append(slam.state)
+            times.append(ms)
+            kinds.append(frame_kind(slam, was_working, n_passes))
+    slam.shutdown()
+    m, lc = slam.map, slam.loop_closer
+    if TrackState.WORKING not in states:
+        fail(f"the two-room system never tracked: {slam.tracker.frame_path}")
+    first = states.index(TrackState.WORKING)
+    frac = float(np.mean([s == TrackState.WORKING for s in states[first:]]))
+    fired = lc is None or lc.last_loop_kf >= 0
+    bars = {"working": frac > TWO_ROOM_WORKING_FRAC,
+            "keyframes": m.n_keyframes() >= TWO_ROOM_MIN_KFS,
+            "points": m.n_points() > TWO_ROOM_MIN_PTS, "no_loop": not fired}
+    print(f"two rooms: {TWO_ROOM_FRAMES} frames, first WORKING {first}, WORKING share "
+          f"{frac:.4f}, {m.n_keyframes()} keyframes ({len(slam.mapping_ms)} mapping passes), "
+          f"{m.n_points()} points, loop fired {fired}; frame paths "
+          f"{dict(Counter(slam.tracker.frame_path))}; bars {bars} ({card})")
+    for kind in ("init", "working", "keyframe"):
+        xs = [t for t, k in zip(times, kinds) if k == kind]
+        print(f"two rooms frame ms, {kind}: {percentiles(xs)} ({card})")
+    missed = [k for k, ok in bars.items() if not ok]
+    if missed:
+        fail(f"the two-room tour missed the bars {missed}")
+    sites = TWO_ROOM_SITES + tuple(sorted(set(spy.launches) - set(TWO_ROOM_SITES)))
+    return slam, check_launches(knn, spy, sites, card, tag="_two_room")
+
+
+def map_copy(m):
+    """A MapStore with m's state deep-copied and m's callbacks."""
+    c = copy.copy(m)
+    vars(c).update(map_state(m))
+    return c
+
+
+def rig_f64(rig):
+    from multicol_slam_tpu_torch.ops.camera import CameraModel
+    from multicol_slam_tpu_torch.ops.rig import Rig
+    return Rig(M_c=rig.M_c.double(), cams=CameraModel(
+        *(f.double() if f.is_floating_point() else f for f in rig.cams)))
+
+
+class ShardSpy:
+    """Counts the meshes ``ba_sharding.make_sharded_ba`` is built for."""
+
+    def __init__(self):
+        from multicol_slam_tpu_torch.parallel import ba_sharding
+        self.bs, self.meshes = ba_sharding, []
+
+    def __enter__(self):
+        self.orig = self.bs.make_sharded_ba
+        self.bs.make_sharded_ba = lambda devices, *a, **k: (
+            self.meshes.append(len(devices)), self.orig(devices, *a, **k))[1]
+        return self
+
+    def __exit__(self, *exc):
+        self.bs.make_sharded_ba = self.orig
+
+
+def sharded_map_ba(dev, card, name, slam):
+    """Phase 13 (b) on one system's map: run_global_ba on copies of the
+    map with the default mesh (one card: single-device) and with
+    devices=[card] * D, D in SHARDS, keyframe 0 the gauge: the summed
+    chi2 within SHARD_MAX_REL of the single-device run's and the gauge
+    unmoved exactly, the largest pose and point differences printed; then
+    the same problem in float64 through make_sharded_ba and
+    bundle_adjustment, poses and points within SHARD_F64_TOL."""
+    from multicol_slam_tpu_torch.models import global_ba
+    from multicol_slam_tpu_torch.models import optimizer as opt
+    from multicol_slam_tpu_torch.models.local_mapping import assemble_ba_problem
+    from multicol_slam_tpu_torch.parallel import ba_sharding as bs
+
+    m = slam.map
+    kfs = sorted(int(k) for k in m.keyframe_ids())
+    pts = np.nonzero(m.pt_valid)[0]
+    sf = slam.settings.scale_factor
+    if global_ba.default_mesh(slam.rig) != [dev]:
+        fail(f"the default mesh is {global_ba.default_mesh(slam.rig)}, not [{dev}]")
+    runs = {}
+    for D in (1,) + SHARDS:
+        c = map_copy(m)
+        with ShardSpy() as spy:
+            chi2, ms = timed(lambda: global_ba.run_global_ba(
+                slam.rig, c, [kfs[0]], sf, iters=GBA_ITERS, devices=None if D == 1 else [dev] * D))
+        if spy.meshes != ([] if D == 1 else [D]):
+            fail(f"{name}: run_global_ba at D={D} built sharded BAs for {spy.meshes}")
+        runs[D] = (c, chi2, ms)
+    ref, chi2_1, ms_1 = runs[1]
+    print(f"sharded BA, {name}: {len(kfs)} keyframes, {len(pts)} points, {GBA_ITERS} "
+          f"iterations, float32: single-device chi2 {chi2_1:.4f} in {ms_1:.3f} ms ({card})")
+    for D in SHARDS:
+        c, chi2, ms = runs[D]
+        rel = abs(chi2 - chi2_1) / chi2_1
+        d_pose = float(np.abs(c.kf_pose[kfs] - ref.kf_pose[kfs]).max())
+        d_pt = float(np.abs(c.pt_pos[pts] - ref.pt_pos[pts]).max())
+        gauge = np.array_equal(c.kf_pose[kfs[0]], m.kf_pose[kfs[0]])
+        print(f"sharded BA, {name}, D={D} on one card: chi2 {chi2:.4f} (relative to "
+              f"single-device {rel:.3e}), largest pose difference {d_pose:.3e}, point "
+              f"difference {d_pt:.3e} m, gauge unmoved {gauge}, {ms:.3f} ms ({card})")
+        if not np.isfinite(chi2) or rel > SHARD_MAX_REL or not gauge:
+            fail(f"{name}: the sharded BA at D={D} is off the single-device run")
+
+    # the same problem in float64, element-wise
+    fixed = np.arange(len(kfs)) == 0
+    problem, mt0, X0, _, _ = assemble_ba_problem(m, kfs, fixed, sf, device=dev)
+    f64 = lambda t: t.double() if t.is_floating_point() else t
+    obs = opt.BAObservations(*(f64(t) for t in problem.obs))
+    problem = problem._replace(obs=obs)
+    rig = rig_f64(slam.rig)
+    mt0 = torch.as_tensor(mt0, dtype=torch.float64, device=dev)
+    X0 = torch.as_tensor(X0, dtype=torch.float64, device=dev)
+    N, P = mt0.shape[0], X0.shape[0]
+    mt1, X1, _ = opt.bundle_adjustment(rig, mt0, X0, problem, iters=GBA_ITERS)
+    worst = 0.0
+    for D in SHARDS:
+        devs = [dev] * D
+        ba = bs.make_sharded_ba(devs, rig, N, P, iters=GBA_ITERS)
+        mt, X, _ = ba(mt0, X0, bs.shard_obs(bs.pad_obs_to_multiple(obs, D), devs),
+                      problem.pt_obs, problem.fixed_kf, problem.fixed_pt)
+        if mt.device != dev or X.device != dev:
+            fail(f"{name}: the float64 sharded BA's outputs lie off the card")
+        d = max(float((mt - mt1).abs().max()), float((X - X1).abs().max()))
+        worst = max(worst, d)
+        print(f"sharded BA, {name}, float64, D={D}: poses {float((mt - mt1).abs().max()):.3e}, "
+              f"points {float((X - X1).abs().max()):.3e} from the single-device run")
+    if not worst <= SHARD_F64_TOL:
+        fail(f"{name}: the float64 sharded BA is {worst:.3e} off the single-device run")
+
+
+def lm_trace(step, cost, mt, X, iters):
+    """``iters`` steps of the BA's schedule (optimizer.lm_accept) from
+    (mt, X), step(mt, X, lam) -> (mt', X') and cost(mt, X) -> robust cost
+    given. Returns the costs, one a step after the start, and which steps
+    were taken."""
+    from multicol_slam_tpu_torch.models import optimizer as opt
+
+    c = cost(mt, X)
+    costs, taken = [float(c)], []
+    lam = torch.full((), 1e-4, dtype=X.dtype, device=X.device)
+    done = torch.zeros((), dtype=torch.bool, device=X.device)
+    for _ in range(iters):
+        mt_n, X_n = step(mt, X, lam)
+        take, c, lam, done = opt.lm_accept(c, cost(mt_n, X_n), lam, done)
+        mt, X = torch.where(take, mt_n, mt), torch.where(take, X_n, X)
+        costs.append(float(c))
+        taken.append(bool(take))
+    return costs, taken
+
+
+def map_scale_ba(dev, card):
+    """Phase 13 (c): the JAX package's map-scale dry run
+    (__graft_entry__.py:76-96) on the card: make_ba_problem(rig, 64, 8192,
+    max_obs_per_pt=8) in float32 from its offsets, MAP_ITERS iterations,
+    the sharded BA at D = 8 within SHARD_MAX_REL of the single-device
+    robust cost and both below MAP_MIN_GAIN of the start; the per-iteration
+    costs of both, each step taken or not, printed; ms per iteration of the
+    single path and of D = 1, 2, 4, 8 on the one card; the peak memory of
+    the D = 8 run above what the process held before it."""
+    from multicol_slam_tpu_torch.models import optimizer as opt
+    from multicol_slam_tpu_torch.parallel import ba_sharding as bs
+    from multicol_slam_tpu_torch.utils import config_io, synthetic
+
+    rig = config_io.load_mcs(config_io.SYNTH_RIG_DIR)[0].to(dev)
+    (mt_true, X_true, uv, kf, cam, pt, valid, pt_obs), build_ms = timed(
+        lambda: synthetic.make_ba_problem(rig, MAP_KF, MAP_PT, max_obs_per_pt=MAP_OBS))
+    K = int(valid.sum())
+    on = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)
+    obs = opt.BAObservations(uv=on(uv, torch.float32), kf=on(kf), cam=on(cam), pt=on(pt),
+                             inv_sigma2=torch.ones(len(kf), device=dev), valid=on(valid))
+    rng = np.random.default_rng(1)
+    mt0 = mt_true + rng.standard_normal(mt_true.shape) * 0.002
+    mt0[0] = mt_true[0]
+    X0 = X_true + rng.standard_normal(X_true.shape) * 0.01
+    fixed_kf = torch.zeros(MAP_KF, dtype=torch.bool, device=dev)
+    fixed_kf[0] = True
+    fixed_pt = torch.zeros(MAP_PT, dtype=torch.bool, device=dev)
+    mt0, X0, pt_obs = on(mt0, torch.float32), on(X0, torch.float32), on(pt_obs)
+    problem = opt.BAProblem(obs, pt_obs, fixed_kf, fixed_pt)
+    h = opt.HUBER_GLOBAL
+    blocks, cost_of = opt.make_ba_blocks(rig, obs, fixed_kf, fixed_pt, MAP_KF, MAP_PT, h)
+    start = float(cost_of(mt0, X0)[0])
+    print(f"map-scale BA: {MAP_KF} keyframes x {MAP_PT} points x {K} observations (at most "
+          f"{MAP_OBS} a point), built in {build_ms:.3f} ms; start robust cost {start:.3f}")
+
+    # the per-iteration traces: the single path's two halves, and
+    # make_sharded_ba_step at D = 8 (its cost: the cost at a step's input)
+    solve = opt.make_schur_solve(obs.kf, obs.valid, pt_obs, fixed_kf, fixed_pt, MAP_KF)
+
+    def single_step(mt, X, lam):
+        dp, dx = solve(*blocks(mt, X)[:5], lam)
+        return mt - dp, X - dx
+
+    devs = [dev] * SHARDS[-1]
+    shards = bs.shard_obs(bs.pad_obs_to_multiple(obs, len(devs)), devs)
+    step8 = bs.make_sharded_ba_step(devs, rig, MAP_KF, MAP_PT)
+    traces = {
+        "single": lm_trace(single_step, lambda mt, X: cost_of(mt, X)[0], mt0, X0, MAP_ITERS),
+        f"D={len(devs)}": lm_trace(
+            lambda mt, X, lam: step8(mt, X, shards, pt_obs, fixed_kf, fixed_pt, lam)[:2],
+            lambda mt, X: step8(mt, X, shards, pt_obs, fixed_kf, fixed_pt, 0.0)[2],
+            mt0, X0, MAP_ITERS)}
+    for name, (costs, taken) in traces.items():
+        print(f"map-scale BA, {name}: robust cost by iteration "
+              f"{[round(c, 4) for c in costs]}, steps taken {taken}")
+
+    # the full LMs, warm, timed: the single path and D = 1, 2, 4, 8
+    def single():
+        mt, X, _ = opt.bundle_adjustment(rig, mt0, X0, problem, iters=MAP_ITERS)
+        return mt, X, cost_of(mt, X)[0]
+
+    runs = {"single": single}
+    for D in (1,) + SHARDS:
+        devs = [dev] * D
+        sh = bs.shard_obs(bs.pad_obs_to_multiple(obs, D), devs)
+        ba = bs.make_sharded_ba(devs, rig, MAP_KF, MAP_PT, iters=MAP_ITERS)
+        runs[f"D={D}"] = lambda ba=ba, sh=sh: ba(mt0, X0, sh, pt_obs, fixed_kf, fixed_pt)
+    out, ms = {}, {}
+    for name, run in runs.items():
+        run()
+        if name == f"D={SHARDS[-1]}":
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+        out[name], ms[name] = timed(run)
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 20
+    print(f"map-scale BA ms an iteration ({MAP_ITERS} iterations, warm): "
+          f"{ {k: round(v / MAP_ITERS, 3) for k, v in ms.items()} }; shards share one card, "
+          f"so this is the cost of sharding, not scaling; peak memory of the D={SHARDS[-1]} "
+          f"run {peak:.1f} MiB above the {held / 2 ** 20:.1f} MiB held before it ({card})")
+    c1 = float(out["single"][2])
+    for name, (mt, X, c) in out.items():
+        if any(t.device != dev for t in (mt, X, c)):
+            fail(f"map-scale BA, {name}: an output lies off the card")
+        rel = abs(float(c) - c1) / c1
+        print(f"map-scale BA, {name}: final robust cost {float(c):.4f} (relative to the "
+              f"single path {rel:.3e}, {float(c) / start:.4f} of the start), largest pose "
+              f"difference {float((mt - out['single'][0]).abs().max()):.3e}")
+        if not np.isfinite(float(c)) or rel > SHARD_MAX_REL or float(c) >= MAP_MIN_GAIN * start:
+            fail(f"map-scale BA, {name}: cost {float(c):.4f} against {c1:.4f} single, "
+                 f"{start:.4f} at the start")
+
+
 def reloc_error(m, poses, gt, at, i):
     """(m, degrees): frame i's returned pose (poses: frame -> (4, 4) or
     None) against ground truth, both relative to frame at - 1: its pose in
@@ -2375,11 +2692,22 @@ def main() -> None:
     dyn_entries = dynamic_phase(dev, knn, card)
     mark("12c dynamic scene")
 
+    # -- 13. the two-room tour, the sharded global BA ----------------------------
+    t13 = time.perf_counter()
+    room_slam, room_entries = two_room_phase(dev, knn, card)
+    mark("13a two-room tour")
+    for name, system in (("two-room map", room_slam), ("phase 6's map", slam)):
+        sharded_map_ba(dev, card, name, system)
+    mark("13b sharded BA on maps")
+    map_scale_ba(dev, card)
+    mark("13c map-scale BA")
+    print(f"phase 13 wall s {time.perf_counter() - t13:.3f} ({card})")
+
     print(f"wall s by phase {phase_s}, whole script {time.perf_counter() - t_script:.3f} "
           f"({card})")
     print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries
                       + md_entries + organic_entries + async_entries + ring_entries
-                      + dyn_entries}))
+                      + dyn_entries + room_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

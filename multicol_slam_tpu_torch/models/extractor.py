@@ -71,6 +71,14 @@ class Features(NamedTuple):
     desc_mask: torch.Tensor   # (C, K, W) int32 packed stability mask
     valid: torch.Tensor       # (C, K) bool
 
+    @property
+    def n_cams(self) -> int:
+        return self.xy.shape[0]
+
+    @property
+    def k_per_cam(self) -> int:
+        return self.xy.shape[1]
+
 
 def _level_buckets(h: int, w: int, k: int) -> int:
     """Bucket edge so that #buckets ~ 3k (octree 'enough leaves' rule)."""

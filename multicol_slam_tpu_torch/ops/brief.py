@@ -92,6 +92,13 @@ def ic_angle_patches(patches: torch.Tensor) -> torch.Tensor:
     return torch.atan2(m01, m10)
 
 
+def ic_angle(img: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angle (radians, [-pi, pi]) of each keypoint yx
+    (B, K, 2) in images (B, H, W): atan2(m01, m10) over the circular
+    31x31 patch."""
+    return ic_angle_patches(extract_patches(img, yx, HALF_PATCH))
+
+
 def blur_patches_valid(patches: torch.Tensor, size: int = 5) -> torch.Tensor:
     """'valid'-mode normalised box filter on (..., P, P) -> (..., P-s+1, P-s+1),
     summed in the JAX package's order."""

@@ -199,3 +199,14 @@ def make_extraction_masks(cam_u0: float, cam_v0: float, width: int,
         d = np.sqrt((ii - cy * s) ** 2 + (jj - cx * s) ** 2)
         masks.append((d < r0 * s).astype(np.uint8) * 255)
     return masks
+
+
+def is_in_mirror_mask(mask: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """isPointInMirrorMask (cam_model_omni.cpp:163-178) for pixel
+    coordinates uv (..., 2) against an (H, W) uint8 mask: rounded half to
+    even (cvRound), inside 0 < u < W, 0 < v < H, and the mask set there."""
+    h, w = mask.shape
+    ur = torch.round(uv[..., 0]).to(torch.int64)
+    vr = torch.round(uv[..., 1]).to(torch.int64)
+    in_bounds = (ur > 0) & (ur < w) & (vr > 0) & (vr < h)
+    return in_bounds & (mask[vr.clamp(0, h - 1), ur.clamp(0, w - 1)] > 0)

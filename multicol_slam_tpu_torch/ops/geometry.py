@@ -179,6 +179,24 @@ def triangulate_midpoint(t12: torch.Tensor, R12: torch.Tensor,
     return (xm + xn) * 0.5
 
 
+def essential_from_relpose(R12: torch.Tensor, t12: torch.Tensor) -> torch.Tensor:
+    """E = [t12/|t12|]_x R12 (misc.h ComputeE(Trel), misc.cpp:71-85)."""
+    tn = t12 / torch.linalg.norm(t12, dim=-1, keepdim=True)
+    return skew(tn) @ R12
+
+
+def essential_from_poses(T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:
+    """E12 from two world-to-camera poses (4, 4) (misc.cpp:71-85): R12 =
+    R1 R2^T, t12 = -R12 t2 + t1 is camera 2's pose in camera 1's frame, so
+    ``ray1^T E12 ray2 = 0`` for corresponding rays (use with
+    ``epipolar_distance_sq``)."""
+    R1, R2 = T1[..., :3, :3], T2[..., :3, :3]
+    t1, t2 = T1[..., :3, 3], T2[..., :3, 3]
+    R12 = R1 @ R2.transpose(-1, -2)
+    t12 = -torch.einsum("...ij,...j->...i", R12, t2) + t1
+    return essential_from_relpose(R12, t12)
+
+
 def epipolar_distance_sq(ray1: torch.Tensor, ray2: torch.Tensor,
                          E12: torch.Tensor) -> torch.Tensor:
     """Squared Sampson-like epipolar distance on bearing rays,
@@ -193,3 +211,37 @@ def epipolar_distance_sq(ray1: torch.Tensor, ray2: torch.Tensor,
     pos = den > 0.0
     return torch.where(pos, nom * nom / torch.where(pos, den, torch.ones_like(den)),
                        torch.full_like(den, float("inf")))
+
+
+def check_dist_epipolar_line(ray1: torch.Tensor, ray2: torch.Tensor, E12: torch.Tensor,
+                             thresh: float = 1e-2) -> torch.Tensor:
+    """Boolean epipolar gate of triangulation matching (misc.cpp:53-69)."""
+    return epipolar_distance_sq(ray1, ray2, E12) < thresh
+
+
+def rot2quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> quaternions [qx, qy, qz, qw]
+    (..., 4), Shepperd's method (cConverter.h:41-91): the w case where
+    the trace is positive, else the case of the largest diagonal entry."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 2.0
+
+    s = root(tr + 1.0)
+    qw = torch.stack([(m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s, 0.25 * s], -1)
+    s = root(1.0 + m00 - m11 - m22)
+    qx = torch.stack([0.25 * s, (m01 + m10) / s, (m02 + m20) / s, (m21 - m12) / s], -1)
+    s = root(1.0 + m11 - m00 - m22)
+    qy = torch.stack([(m01 + m10) / s, 0.25 * s, (m12 + m21) / s, (m02 - m20) / s], -1)
+    s = root(1.0 + m22 - m00 - m11)
+    qz = torch.stack([(m02 + m20) / s, (m12 + m21) / s, 0.25 * s, (m10 - m01) / s], -1)
+    use_w = tr > 0.0
+    use_x = ~use_w & (m00 >= m11) & (m00 >= m22)
+    use_y = ~use_w & ~use_x & (m11 >= m22)
+    q = torch.where(use_w[..., None], qw, torch.where(
+        use_x[..., None], qx, torch.where(use_y[..., None], qy, qz)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

@@ -63,3 +63,19 @@ def build_pyramid(images: torch.Tensor, n_levels: int, scale: float) -> list[tor
         t = torch.matmul(prev, mw)                           # (c, hp, wl)
         levels.append(torch.matmul(mh, t))                   # (c, hl, wl)
     return levels
+
+
+def box_filter(images: torch.Tensor, size: int = 5) -> torch.Tensor:
+    """Normalized box filter with the reflect-101 border on (..., H, W)
+    (cv::boxFilter(..., Size(5, 5), normalize=true, BORDER_REFLECT_101),
+    mdBRIEFextractorOct.cpp:1301): two 1-D window sums over the whole
+    image. The extractor blurs only the patches descriptors read
+    (``brief.blur_patches_valid``); inside the border they agree."""
+    r = size // 2
+    lead = images.shape[:-2]
+    x = torch.nn.functional.pad(images.reshape((-1, 1) + tuple(images.shape[-2:])),
+                                (r, r, r, r), mode="reflect")
+    x = x.reshape(lead + tuple(x.shape[-2:]))
+    acc_h = sum(x[..., :, i:i + images.shape[-1]] for i in range(size))
+    acc = sum(acc_h[..., i:i + images.shape[-2], :] for i in range(size))
+    return acc / (size * size)

@@ -129,15 +129,16 @@ def _epipolar_err(E: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor):
 
 def ransac_essential(gen: torch.Generator, v1: torch.Tensor, v2: torch.Tensor,
                      valid: torch.Tensor, *, threshold: float = 1e-4,
-                     n_hyps: int = 256):
+                     n_hyps: int = 256, sample_size: int = 5):
     """Batched essential RANSAC over bearing pairs v1, v2 (N, 3) with
-    valid (N,): each minimal 5-point sample is solved from every seed of
-    ESSENTIAL_SEEDS (one lane per (sample, seed)), and lanes whose
-    residual stays above 250 eps are dropped. The best-scoring hypothesis
-    (first on ties) is refit with the 8-point solver on its inliers and
-    kept if it scores at least as well. Returns (E (3, 3), inlier mask
-    (N,), n_inliers). The JAX package's ``sample_size=8`` hypotheses wait
-    for a caller.
+    valid (N,). ``sample_size=5`` (the default, the bootstrap's): each
+    minimal 5-point sample is solved from every seed of ESSENTIAL_SEEDS
+    (one lane per (sample, seed)), and lanes whose residual stays above
+    250 eps are dropped. ``sample_size=8`` (or more): one linear 8-point
+    solve (``essential_8pt``) per sample. The best-scoring hypothesis (first on
+    ties) is refit with the 8-point solver on its inliers and kept if it
+    scores at least as well. Returns (E (3, 3), inlier mask (N,),
+    n_inliers).
 
     Deviation: the Newton iterations run in float64 for float32 inputs.
     Near-degenerate minimal samples leave the root poorly determined in
@@ -147,24 +148,27 @@ def ransac_essential(gen: torch.Generator, v1: torch.Tensor, v2: torch.Tensor,
     solved in float64, the port's poses follow the JAX package's to 1e-5 m
     (tests/test_torch_system.py)."""
     n = v1.shape[0]
-    idx = sample_minimal_sets(gen, n_hyps, 5, n,
+    idx = sample_minimal_sets(gen, n_hyps, sample_size, n,
                               valid.to(torch.float32)).to(v1.device)
     dt, dev = v1.dtype, v1.device
-    cays = torch.tensor([s[0] for s in ESSENTIAL_SEEDS], dtype=dt, device=dev)
-    ts = torch.tensor([s[1] for s in ESSENTIAL_SEEDS], dtype=dt, device=dev)
-    ts = ts / torch.linalg.norm(ts, dim=-1, keepdim=True)
-    n_seeds = len(ESSENTIAL_SEEDS)
-    lanes = lambda a: a[:, None].expand((n_hyps, n_seeds) + tuple(a.shape[1:])) \
-        .reshape((n_hyps * n_seeds,) + tuple(a.shape[1:]))
-    seed = lambda a: a[None].expand((n_hyps,) + tuple(a.shape)).reshape(-1, 3)
-    f64 = torch.float64
-    Es, res = essential_5pt(lanes(v1[idx]).to(f64), lanes(v2[idx]).to(f64),
-                            seed(cays).to(f64), seed(ts).to(f64))
-    Es, res = Es.to(dt), res.to(dt)
-    # convergence tolerance at the dtype's noise floor
-    tol = 250.0 * torch.finfo(dt).eps
-    Es = torch.where((res > tol)[:, None, None],
-                     torch.full_like(Es, float("inf")), Es)
+    if sample_size == 5:
+        cays = torch.tensor([s[0] for s in ESSENTIAL_SEEDS], dtype=dt, device=dev)
+        ts = torch.tensor([s[1] for s in ESSENTIAL_SEEDS], dtype=dt, device=dev)
+        ts = ts / torch.linalg.norm(ts, dim=-1, keepdim=True)
+        n_seeds = len(ESSENTIAL_SEEDS)
+        lanes = lambda a: a[:, None].expand((n_hyps, n_seeds) + tuple(a.shape[1:])) \
+            .reshape((n_hyps * n_seeds,) + tuple(a.shape[1:]))
+        seed = lambda a: a[None].expand((n_hyps,) + tuple(a.shape)).reshape(-1, 3)
+        f64 = torch.float64
+        Es, res = essential_5pt(lanes(v1[idx]).to(f64), lanes(v2[idx]).to(f64),
+                                seed(cays).to(f64), seed(ts).to(f64))
+        Es, res = Es.to(dt), res.to(dt)
+        # convergence tolerance at the dtype's noise floor
+        tol = 250.0 * torch.finfo(dt).eps
+        Es = torch.where((res > tol)[:, None, None],
+                         torch.full_like(Es, float("inf")), Es)
+    else:
+        Es = essential_8pt(v1[idx], v2[idx])                      # (S, 3, 3)
     errs = _epipolar_err(Es, v1[None], v2[None])                  # (S, N)
     errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
     inl = (errs < threshold) & valid[None, :]
@@ -287,7 +291,7 @@ DEPTH_SEEDS = (0.3, 1.0, 3.0, 10.0)
 
 def ransac_gpnp(gen: torch.Generator, origins: torch.Tensor, dirs: torch.Tensor,
                 X: torch.Tensor, valid: torch.Tensor, *, threshold: float = 1e-4,
-                n_hyps: int = 256):
+                n_hyps: int = 256, sample_size: int = 3):
     """Batched non-central absolute-pose RANSAC (GP3P-RANSAC, threshold
     1e-4 on 1 - cos of the ray angle as cTracking.cpp:1256): each minimal
     3-point sample, drawn among the valid rows, is solved from every depth
@@ -296,20 +300,26 @@ def ransac_gpnp(gen: torch.Generator, origins: torch.Tensor, dirs: torch.Tensor,
     hypothesis (first on ties) is refit with the DLT on its inliers and
     kept if it scores at least as well.
 
+    ``sample_size`` 6 or more (the relocalizer uses 3): one DLT
+    (``gpnp_dlt``) per sample in place of GP3P, sample by sample.
+
     origins, dirs, X: (N, 3); valid (N,). Returns (T world->body (4, 4),
-    inlier mask (N,), n_inliers). The JAX package's larger-sample DLT
-    hypotheses wait for a caller."""
+    inlier mask (N,), n_inliers)."""
     n = X.shape[0]
-    idx = sample_minimal_sets(gen, n_hyps, 3, n, valid.to(torch.float32)).to(X.device)
-    seeds = torch.tensor(DEPTH_SEEDS, dtype=X.dtype, device=X.device)
-    S = len(DEPTH_SEEDS)
-    lanes = lambda a: a[idx][:, None].expand(n_hyps, S, 3, 3).reshape(-1, 3, 3)
-    d0 = seeds[None, :, None].expand(n_hyps, S, 3).reshape(-1, 3)
-    Ts, res = gp3p(lanes(origins), lanes(dirs), lanes(X), d0)
-    eye_inf = torch.eye(4, dtype=X.dtype, device=X.device) * float("inf")
-    # unconverged lanes, NaN residuals too, score no inliers (in the JAX
-    # package a NaN lane's pose is NaN itself)
-    Ts = torch.where(~(res <= 1e-4)[:, None, None], eye_inf, Ts)
+    idx = sample_minimal_sets(gen, n_hyps, sample_size, n,
+                              valid.to(torch.float32)).to(X.device)
+    if sample_size == 3:
+        seeds = torch.tensor(DEPTH_SEEDS, dtype=X.dtype, device=X.device)
+        S = len(DEPTH_SEEDS)
+        lanes = lambda a: a[idx][:, None].expand(n_hyps, S, 3, 3).reshape(-1, 3, 3)
+        d0 = seeds[None, :, None].expand(n_hyps, S, 3).reshape(-1, 3)
+        Ts, res = gp3p(lanes(origins), lanes(dirs), lanes(X), d0)
+        eye_inf = torch.eye(4, dtype=X.dtype, device=X.device) * float("inf")
+        # unconverged lanes, NaN residuals too, score no inliers (in the JAX
+        # package a NaN lane's pose is NaN itself)
+        Ts = torch.where(~(res <= 1e-4)[:, None, None], eye_inf, Ts)
+    else:
+        Ts = torch.stack([gpnp_dlt(origins[i], dirs[i], X[i]) for i in idx])
     errs = _ray_angle_err(Ts, origins, dirs, X)                  # (L, N)
     errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
     inl = (errs < threshold) & valid[None, :]

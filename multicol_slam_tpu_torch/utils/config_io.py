@@ -93,7 +93,8 @@ def load_settings(path: str) -> SlamSettings:
     )
 
 
-def _load_interior_orientation(path: str, dtype) -> tuple[CameraModel, bool]:
+def load_interior_orientation(path: str, dtype=torch.float32) -> tuple[CameraModel, bool]:
+    """One InteriorOrientationFisheye{c}.yaml -> (CameraModel, mirror flag)."""
     d = load_opencv_yaml(path)
     n_pol = int(d["Camera.nrpol"])
     n_inv = int(d["Camera.nrinvpol"])
@@ -124,7 +125,7 @@ def load_mcs(calib_dir: str, dtype=torch.float32, n_mask_levels: int = 4):
     cams: List[CameraModel] = []
     masks_per_cam = []
     for c in range(n_cams):
-        cam, want_mask = _load_interior_orientation(
+        cam, want_mask = load_interior_orientation(
             os.path.join(calib_dir, f"InteriorOrientationFisheye{c}.yaml"), dtype)
         cams.append(cam)
         w, h = int(cam.width), int(cam.height)

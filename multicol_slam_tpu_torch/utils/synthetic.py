@@ -8,8 +8,8 @@ along a smooth arc, a lateral path or the benchmark sequence (a lateral
 opening, then the arc); interior walls with doors, fins and moving
 spheres; the two-room and baffle tours whose revisit a loop closer must
 detect; and ``make_dead_reckoner``, the simulated odometry that drifts
-the tracker on such a tour. ``make_ba_problem`` is not ported: it waits
-for its caller, multi-device BA.
+the tracker on such a tour; ``make_ba_problem``, a map-scale global-BA
+problem for the sharded BA.
 ``gt_bootstrap`` lifts a frame's keypoints to their wall points at the
 true pose, the map the WORKING frame tracks against when mapping is not
 in the loop.
@@ -24,7 +24,7 @@ import torch
 
 from ..ops import camera as cam_ops
 from ..ops import se3_np
-from ..ops.geometry import hom2cayley
+from ..ops.geometry import cayley2hom, hom2cayley
 from ..ops.rig import Rig, mt_mc
 
 ROOM_HALF = 4.0     # half-extent of the cubic room (meters)
@@ -465,3 +465,76 @@ def gt_bootstrap(rig: Rig, M0: torch.Tensor, feats0, n_levels: int,
         pt_mask=pack(torch.full_like(feats0.desc, -1), 0),
         mt0=hom2cayley(M0), V0=torch.eye(4, dtype=torch.float32, device=dev),
         P=P)
+
+
+def make_ba_problem(rig: Rig, n_kf: int, n_pt: int, *, max_obs_per_pt: int = 8,
+                    noise_px: float = 0.5, seed: int = 0):
+    """A synthetic global-BA problem at map scale (cOptimizer::
+    GlobalBundleAdjustment's workload, cOptimizer.cpp:57-257: every
+    keyframe against every point), the input of the sharded BA's runs.
+
+    Keyframe poses along a slow arc with yaw, points in a 2-5 m shell;
+    every (keyframe, point) pair projected through the rig in one
+    ``world_to_img_rig`` call over keyframes x cameras, kept 40 px inside
+    the image in the first camera that sees it; per point up to
+    ``max_obs_per_pt`` observing keyframes spread over its visible span
+    (entry r of n visible kept iff it opens its stride bucket
+    floor(r M / n): the first M would starve later keyframes and
+    ill-condition the reduced system); pixel noise. The numpy draws are the
+    JAX package's, in its order. Returns numpy (mt_true (N, 6), X_true
+    (P, 3), uv (K+1, 2), kf, cam, pt, valid (K+1,), pt_obs (P, M)) with the
+    optimizer's convention of one invalid pad row K."""
+    from ..ops.rig import world_to_img_rig
+
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 1.5 * np.pi, n_kf)
+    mt_true = np.zeros((n_kf, 6))
+    mt_true[:, 1] = np.tan(ang / 4.0)             # cayley yaw = tan(th/2)
+    mt_true[:, 3] = 0.8 * np.sin(ang)
+    mt_true[:, 5] = 0.8 * (np.cos(ang) - 1.0)
+    mt_true[:, 4] = 0.1 * np.sin(3 * ang)
+    X = rng.standard_normal((n_pt, 3))
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    X *= rng.uniform(2.0, 5.0, (n_pt, 1))
+
+    # keyframes x cameras as the cameras of one rig at the identity pose
+    dev, dt = rig.M_c.device, rig.M_c.dtype
+    C = rig.n_cams
+    M_t = cayley2hom(torch.as_tensor(mt_true, dtype=dt, device=dev))
+    per_kf = Rig(M_c=(M_t[:, None] @ rig.M_c[None]).reshape(-1, 4, 4),
+                 cams=rig.cams.index(torch.arange(n_kf * C, device=dev) % C))
+    uv_all, zpos = world_to_img_rig(per_kf, torch.eye(4, dtype=dt, device=dev),
+                                    torch.as_tensor(X, dtype=dt, device=dev))
+    uv_all = uv_all.reshape(n_kf, C, n_pt, 2).cpu().numpy()
+    zpos = zpos.reshape(n_kf, C, n_pt).cpu().numpy()
+    w = rig.cams.width.cpu().numpy().astype(np.float32)[None, :, None]
+    h = rig.cams.height.cpu().numpy().astype(np.float32)[None, :, None]
+    ok = (zpos & (uv_all[..., 0] > 40) & (uv_all[..., 0] < w - 40)
+          & (uv_all[..., 1] > 40) & (uv_all[..., 1] < h - 40))
+    first_cam = np.argmax(ok, axis=1)              # (N, P)
+    vis_pn = ok.any(axis=1).T                      # (P, N)
+    Mo = max_obs_per_pt
+    rank = np.cumsum(vis_pn, axis=1) - 1
+    n_vis = np.maximum(vis_pn.sum(axis=1, keepdims=True), 1)
+    bucket_id = rank * Mo // n_vis
+    prev_bucket = (rank - 1) * Mo // n_vis
+    keep = vis_pn & ((bucket_id != prev_bucket) | (rank == 0)) \
+        & (rank < n_vis) & (bucket_id < Mo)
+    pt_idx, kf_idx = np.nonzero(keep)
+    cam_idx = first_cam[kf_idx, pt_idx]
+    K = len(pt_idx)
+    uv = np.zeros((K + 1, 2))
+    uv[:K] = uv_all[kf_idx, cam_idx, pt_idx] + rng.normal(0, noise_px, (K, 2))
+    kf = np.zeros(K + 1, np.int32)
+    kf[:K] = kf_idx
+    cam = np.zeros(K + 1, np.int32)
+    cam[:K] = cam_idx
+    pt = np.zeros(K + 1, np.int32)
+    pt[:K] = pt_idx
+    valid = np.zeros(K + 1, bool)
+    valid[:K] = True
+    pt_obs = np.full((n_pt, Mo), K, np.int32)       # pad -> the invalid row
+    # rank among the kept observations (<= M a point), not the visible ones
+    keep_rank = np.cumsum(keep, axis=1) - 1
+    pt_obs[pt_idx, keep_rank[pt_idx, kf_idx]] = np.arange(K)
+    return mt_true, X, uv, kf, cam, pt, valid, pt_obs

@@ -44,6 +44,8 @@ SLICE_MODULES = [
     "multicol_slam_tpu_torch.models.loop_closing",
     "multicol_slam_tpu_torch.models.global_ba",
     "multicol_slam_tpu_torch.models.system",
+    "multicol_slam_tpu_torch.parallel",
+    "multicol_slam_tpu_torch.parallel.ba_sharding",
     "multicol_slam_tpu_torch.utils.config_io",
     "multicol_slam_tpu_torch.utils.synthetic",
     "multicol_slam_tpu_torch.utils.convert",
@@ -312,6 +314,25 @@ SELF_CAL = [("multicol_slam_tpu_torch.models.optimizer", name) for name in (
     "intrinsics_jacobian")] + [("multicol_slam_tpu_torch.ops.rig", name) for name in (
         "make_rig", "world_to_cam_frame", "world_to_img_rig", "img_to_world_rig",
         "rays_to_body", "cam_centers_world")]
+# slice 9: the sharded BA, the halves of the Schur step it shares with
+# bundle_adjustment, and the leaf functions
+SELF_CAL += [("multicol_slam_tpu_torch.models.optimizer", name) for name in (
+    "make_ba_blocks", "make_schur_solve", "lm_accept", "bundle_adjustment")] + [
+    ("multicol_slam_tpu_torch.parallel.ba_sharding", name) for name in (
+        "pad_obs_to_multiple", "shard_obs", "reduce_sum", "gather_rows", "_sharded_problem",
+        "make_sharded_ba_step", "make_sharded_ba")] + [
+    ("multicol_slam_tpu_torch.ops.geometry", name) for name in (
+        "essential_from_relpose", "essential_from_poses", "check_dist_epipolar_line",
+        "rot2quat")] + [
+    ("multicol_slam_tpu_torch.ops.camera", "is_in_mirror_mask"),
+    ("multicol_slam_tpu_torch.ops.hamming", "hamming_matrix_exact"),
+    ("multicol_slam_tpu_torch.ops.hamming", "hamming_matrix_masked_exact"),
+    ("multicol_slam_tpu_torch.ops.hamming", "to_pm1"),
+    ("multicol_slam_tpu_torch.ops.pyramid", "box_filter"),
+    ("multicol_slam_tpu_torch.ops.brief", "ic_angle"),
+    ("multicol_slam_tpu_torch.ops.ransac", "ransac_essential"),
+    ("multicol_slam_tpu_torch.ops.ransac", "ransac_gpnp"),
+    ("multicol_slam_tpu_torch.ops.hamming", "gated_nn_match")]
 FACTORIES = {"zeros", "ones", "full", "empty", "eye", "arange", "tensor", "linspace",
              "as_tensor", "randn", "rand"}
 
@@ -370,4 +391,25 @@ def test_self_calibration_runs_on_the_inputs_device():
             rig_ops.cam_centers_world(M_t, rig.M_c),
             rig_ops.make_rig([rig.M_c[c] for c in range(3)],
                              [rig.cams.index(c) for c in range(3)]).M_c]
+    assert all(t.device == m for t in outs), [t.device for t in outs]
+
+
+def test_sharded_ba_runs_on_the_mesh_devices():
+    """The sharded BA on a mesh of two meta devices: every output lies
+    there, so no shard's work fell back to the CPU or copied to the host."""
+    from multicol_slam_tpu_torch.models import optimizer as opt
+    from multicol_slam_tpu_torch.parallel import ba_sharding as bs
+    from multicol_slam_tpu_torch.utils import config_io
+
+    m = torch.device("meta")
+    rig = config_io.load_mcs(config_io.SYNTH_RIG_DIR)[0]
+    N, P, K, M = 4, 20, 61, 5
+    z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=m)
+    obs = opt.BAObservations(uv=z(K, 2), kf=z(K, dtype=torch.int32), cam=z(K, dtype=torch.int32),
+                             pt=z(K, dtype=torch.int32), inv_sigma2=z(K),
+                             valid=z(K, dtype=torch.bool))
+    shards = bs.shard_obs(bs.pad_obs_to_multiple(obs, 2), [m, m])
+    args = (z(P, M, dtype=torch.int32), z(N, dtype=torch.bool), z(P, dtype=torch.bool))
+    outs = [*bs.make_sharded_ba([m, m], rig, N, P, iters=2)(z(N, 6), z(P, 3), shards, *args),
+            *bs.make_sharded_ba_step([m, m], rig, N, P)(z(N, 6), z(P, 3), shards, *args, 1e-4)]
     assert all(t.device == m for t in outs), [t.device for t in outs]

@@ -49,7 +49,13 @@ WORLDS = {
                                        place_texture=True),
     "baffle, distractors": dict(room_half=tsyn.BAFFLE_ROOM_HALF,
                                 door_wall=list(tsyn.BAFFLE_WALLS), distractors=SPHERES),
+    # tests/test_two_room.py's world: one door wall as a dict, not a list
+    "two rooms": dict(room_half=(2.2, 2.2, 3.6),
+                      door_wall=dict(z=0.0, door_half_x=0.8, door_half_y=1.3)),
 }
+# the poses each world is seen from: the two rooms from their own tour,
+# before, in and after the door
+POSES = {"two rooms": lambda: tsyn.two_room_loop_trajectory(64)[[10, 16, 40]]}
 
 
 def _rigs():
@@ -86,7 +92,7 @@ def test_frames_match_the_eager_jax_renderer(world):
     the last-ulp differences of the module docstring."""
     jr, tr = _rigs()
     kw = WORLDS[world]
-    gt = tsyn.baffle_revisit_trajectory_short(112)[[4, 30, 56]]
+    gt = POSES.get(world, lambda: tsyn.baffle_revisit_trajectory_short(112)[[4, 30, 56]])()
     with jax.enable_x64(False):
         render = jsyn.make_renderer(jr, **kw)
         with jax.disable_jit():
