@@ -196,10 +196,33 @@ Phases, each fatal on failure:
      per iteration of the single path and of D = 1, 2, 4, 8 on the one
      card (the cost of sharding: the shards share one card), the peak
      memory of the D = 8 run; every output on the card.
+ 14. the compiled main path. On the card the tracker runs its WORKING
+     frame (working_track_step) and the chunk scan's body
+     (working_scan_body) as CUDA graphs (utils/graphs.py): one capture
+     per set of static arguments and input shapes, one replay a frame;
+     phases 6, 9, 10, 11 (a)-(b), 12 and 13 (a) run so, each to its bars
+     (11 (a) counts the captures made while a mapping pass ran). (a)
+     phase 4's 16 frames at the default SlamSettings through
+     MultiColSLAM's extractor and match parameters, the slots rolled
+     eagerly frame by frame: the graphed and the eager working_track_step
+     on identical inputs, all 14 outputs identical (integers and flags
+     equal, floats with max |diff| 0), entry A launched twice a frame
+     inside the graph; then 3 frames at phase 9's mdBRIEF settings, every
+     launch masked; (b) torch.profiler and the host clock over 8 of those
+     frames, eager against graphed: device operations and device ms a
+     frame, busy share, ms a frame (median, p90; in turns eager, graphed,
+     graphed, eager); (c) every chunk of phase 11 (b)'s track_batch run
+     again through the eager scan body on copies of its inputs:
+     identical. After each system phase the script prints the graphs
+     held, the captures (function, local-map bucket, seconds), their
+     seconds in all, the replays and the pool's MiB.
 
-Each of phases 6, 7, 8, 9, 10, 11 (a) and (b), 12 (a) and (c) and 13 (a)
-sets the launch counts to 0 just before it drives its path and reads them
-just after. For each call site (phases 4, 6-13) the script times, on the
+Each of phases 6, 7, 8, 9, 10, 11 (a) and (b), 12 (a) and (c), 13 (a)
+and 14 (a) sets the launch counts to 0 just before it drives its path and
+reads them just after. A launch inside a graph is counted at every replay
+(the wrappers and SiteSpy count through graphs.on_launch); a graphed
+site's inputs, held against the plain version, are those of the graph's
+warm-up, the eager run that precedes its capture. For each call site (phases 4, 6-13) the script times, on the
 card: the entry's device time per launch (CUDA-graph replay, so no host
 enqueue in it), one call between two events as earlier versions timed
 (host enqueue included), the plain version, and at the window-gated sites the path the
@@ -340,6 +363,8 @@ ORGANIC_SITES = ("init", "init_mutual", "motion", "local_map", "triangulation",
 ASYNC_MAPPER_SITES = tuple(s + MAPPER for s in ("triangulation", "cross_camera", "fuse"))
 ASYNC_SITES = ("init", "init_mutual", "window_search", "motion", "local_map") + ASYNC_MAPPER_SITES
 CHUNK_SITES = ("chunk_motion", "chunk_local_map")
+GRAPH_MD_FRAMES = 3    # phase 14 (a): frames at phase 9's mdBRIEF settings
+PROFILE_FRAMES = 8     # phase 14 (b): frames profiled, eager and graphed
 CHUNK = 8              # frames a chunk of track_batch
 RESET_AT = 12          # phase 11 (c): frames before the reset with a pass in flight
 CLI_FRAMES = 24        # phase 11 (d): synthetic frames of the CLI run
@@ -603,7 +628,17 @@ class SiteSpy:
     launch's call site (with MAPPER appended on the async mapper's thread),
     counts it, keeps each site's first inputs and the CUDA streams its
     launches went on; the wrappers still launch and count. Launches may
-    come from two threads at once."""
+    come from two threads at once.
+
+    A launch inside a CUDA-graph capture (utils/graphs.py) is counted
+    through graphs.on_launch, as the wrappers count theirs: at every
+    replay of the graph, with the stream the replay runs on, by the spy
+    active at the replay (a graph a phase captured replays in later
+    phases on the same system). Its inputs are not kept (at capture they
+    hold no values yet): a site's first inputs come from the graph's
+    warm-up, the eager run that precedes each capture."""
+
+    active = None
 
     def __init__(self, knn, matcher):
         self.knn, self.matcher = knn, matcher
@@ -612,25 +647,35 @@ class SiteSpy:
         self.lock = threading.Lock()
 
     def _call(self, kind, args):
+        from multicol_slam_tpu_torch.utils import graphs
+
         site = call_site()
         if threading.current_thread().name == "multicol-mapper":
             site += MAPPER
         with self.lock:
             if site == "init" and self.launches["init"] > self.launches["init_mutual"]:
                 site = "init_mutual"           # the swapped second launch
+            if not graphs.capturing():
+                self.args.setdefault(site, (kind, args))
+        masked = len(args) > (10 if kind == "radius" else 3)
+        graphs.on_launch(lambda: SiteSpy.active and SiteSpy.active._count(site, masked))
+        return getattr(self.knn, ENTRY[kind])(*args)
+
+    def _count(self, site, masked):
+        with self.lock:
             self.launches[site] += 1
-            self.masked[site] += len(args) > (10 if kind == "radius" else 3)
-            self.args.setdefault(site, (kind, args))
+            self.masked[site] += masked
             self.streams.setdefault(site, set()).add(
                 torch.cuda.current_stream().cuda_stream if torch.cuda.is_available() else None)
-        return getattr(self.knn, ENTRY[kind])(*args)
 
     def __enter__(self):
         self.matcher.hamming_nn = lambda *a: self._call("dense", a)
         self.matcher.hamming_nn_radius = lambda *a: self._call("radius", a)
+        SiteSpy.active = self
         return self
 
     def __exit__(self, *exc):
+        SiteSpy.active = None
         self.matcher.hamming_nn = self.knn.hamming_nn
         self.matcher.hamming_nn_radius = self.knn.hamming_nn_radius
 
@@ -1563,11 +1608,13 @@ def organic_phase(dev, knn, card):
 def async_phase(dev, knn, card, frames, gt, ref):
     """Phase 11: (a) async mapping, (b) the chunked path, (c) a reset with
     a mapping pass in flight, (d) the command line. Returns the kernel JSON
-    entries of (a)'s and (b)'s call sites."""
+    entries of (a)'s and (b)'s call sites, and (b)'s recorded chunk scans
+    for phase 14 (c)."""
     t0 = time.perf_counter()
     entries = async_mapping_run(dev, knn, card, frames, gt, ref)
     t1 = time.perf_counter()
-    entries += chunked_run(knn, card, frames, gt, ref)
+    chunk_entries, scans = chunked_run(knn, card, frames, gt, ref)
+    entries += chunk_entries
     t2 = time.perf_counter()
     reset_in_flight(dev, frames)
     t3 = time.perf_counter()
@@ -1575,7 +1622,7 @@ def async_phase(dev, knn, card, frames, gt, ref):
     t4 = time.perf_counter()
     print(f"phase 11 wall s: async {t1 - t0:.3f}, chunked {t2 - t1:.3f}, reset {t3 - t2:.3f}, "
           f"CLI {t4 - t3:.3f}, all {t4 - t0:.3f} ({card})")
-    return entries
+    return entries, scans
 
 
 def async_mapping_run(dev, knn, card, frames, gt, ref):
@@ -1587,7 +1634,7 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
     from multicol_slam_tpu_torch.models import matcher
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
     from multicol_slam_tpu_torch.models.tracking import TrackState
-    from multicol_slam_tpu_torch.utils import config_io
+    from multicol_slam_tpu_torch.utils import config_io, graphs
     from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
 
     slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, async_mapping=True)
@@ -1596,8 +1643,16 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
     process, ba = slam.mapper.process_keyframe, slam.mapper._local_bundle_adjustment
     refuse = slam.tracker.interrupt_ba_fn
 
+    # the first pass on the mapper thread waits until the tracker starts a
+    # capture (the loop below drops the tracker's graphs to make one), so
+    # one capture runs beside a mapping pass
+    held, go = threading.Event(), threading.Event()
+
     def recorded_pass(kf):
         passes.append((threading.get_ident(), torch.cuda.current_stream(dev).cuda_stream))
+        if threading.current_thread() is mapper_thread and not held.is_set():
+            held.set()
+            go.wait(timeout=60)
         return process(kf)
 
     def recorded_ba(kf):
@@ -1608,14 +1663,33 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
         count["refused"] += 1
         return refuse()
 
+    def mapper_launches():
+        return sum(spy.launches[site] for site in ASYNC_MAPPER_SITES)
+
+    def capture_noted(run, device):
+        # a capture on the tracker's thread; the held pass starts with it
+        count["captures"] += 1
+        busy = slam._mapper_busy.is_set()
+        if held.is_set():
+            go.set()
+        before = mapper_launches()
+        out = capture(run, device)
+        count["captures_in_pass"] += busy
+        count["mapper_launches_in_capture"] += mapper_launches() - before
+        return out
+
     slam.mapper.process_keyframe = recorded_pass
     slam.mapper._local_bundle_adjustment = recorded_ba
     slam.tracker.interrupt_ba_fn = refused
+    capture = graphs._capture
+    graphs._capture = capture_noted
     kinds, times, init_frame, returned = [], [], None, {}
     reset_launches(knn)
     with SiteSpy(knn, matcher) as spy:
         try:
             for i in range(SYS_FRAMES):
+                if held.is_set() and not go.is_set():
+                    slam.tracker._working_step.clear()
                 was_working = slam.state == TrackState.WORKING
                 n_kf = slam.map.n_keyframes()
                 returned[i], ms = timed(lambda: slam.track(frames[i], i / 25.0))
@@ -1625,6 +1699,8 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
                 kinds.append("init" if not was_working else
                              "keyframe" if slam.map.n_keyframes() > n_kf else "working")
         finally:
+            graphs._capture = capture
+            go.set()
             t0 = time.perf_counter()
             slam.shutdown()
             join_s = time.perf_counter() - t0
@@ -1639,9 +1715,14 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
           f"({len(on_mapper)} after the bootstrap on the mapper thread and its stream), "
           f"{m.n_points()} points, {count['refused']} keyframes refused while the mapper was "
           f"busy, {len(passes) - count['ba']} passes interrupted, shutdown joined in "
-          f"{join_s:.3f} s, frame paths {dict(Counter(tr.frame_path))}")
+          f"{join_s:.3f} s, frame paths {dict(Counter(tr.frame_path))}; {count['captures']} "
+          f"graph captures on the tracker's thread, {count['captures_in_pass']} of them while "
+          f"a mapping pass ran, {count['mapper_launches_in_capture']} mapper launches during "
+          f"the captures")
     if init_frame is None or init_frame >= SYS_INIT_BY:
         fail(f"async: the system did not initialize within {SYS_INIT_BY} frames")
+    if not count["captures_in_pass"]:
+        fail("async: no graph was captured while a mapping pass ran")
     after = SYS_FRAMES - init_frame - 1
     if len(tr.all_poses) - 1 < SYS_WORKING_FRAC * after:
         fail(f"async: WORKING on {len(tr.all_poses) - 1} of the {after} frames after init")
@@ -1674,14 +1755,15 @@ def chunked_run(knn, card, frames, gt, ref):
     frames, held to tests/test_chunked_tracking.py's bars against phase 6's
     per-frame run; entry A launched inside the chunk scan at the motion and
     local-map sites, each equal to its plain version."""
-    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models import matcher, tracking
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
-    from multicol_slam_tpu_torch.utils import config_io
+    from multicol_slam_tpu_torch.utils import config_io, graphs
     from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
 
     slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR)
-    chunk_ms = []
+    chunk_ms, scans = [], []
     track_chunk = slam.tracker.track_chunk
+    scan = tracking.working_scan_chunk
 
     def timed_chunk(images, timestamps):
         r, ms = timed(lambda: track_chunk(images, timestamps))
@@ -1689,12 +1771,23 @@ def chunked_run(knn, card, frames, gt, ref):
             chunk_ms.append((r[0], ms))
         return r
 
+    def recorded_scan(*a, **k):
+        # phase 14 (c) runs each chunk again eagerly on copies of its inputs
+        inputs = clone_tree((a, {n: v for n, v in k.items() if n != "body"}))
+        out = scan(*a, **k)
+        scans.append((inputs, k["body"], (out[0], dict(out[1]))))   # the tracker pops feats
+        return out
+
     slam.tracker.track_chunk = timed_chunk
+    tracking.working_scan_chunk = recorded_scan
     reset_launches(knn)
-    with SiteSpy(knn, matcher) as spy:
-        res, wall = timed(lambda: slam.track_batch(frames[:SYS_FRAMES],
-                                                   [i / 25.0 for i in range(SYS_FRAMES)],
-                                                   chunk=CHUNK))
+    try:
+        with SiteSpy(knn, matcher) as spy:
+            res, wall = timed(lambda: slam.track_batch(frames[:SYS_FRAMES],
+                                                       [i / 25.0 for i in range(SYS_FRAMES)],
+                                                       chunk=CHUNK))
+    finally:
+        tracking.working_scan_chunk = scan
     slam.shutdown()
     m, tr = slam.map, slam.tracker
     ref_used = [i for i, M in enumerate(ref["poses"]) if M is not None]
@@ -1725,7 +1818,9 @@ def chunked_run(knn, card, frames, gt, ref):
         fail(f"chunked: a pose {max(dist):.3f} m from the per-frame run's")
     if steady.count(0) < len(steady) // 3:
         fail(f"chunked: {steady.count(0)} of {len(steady)} steady frames without a dispatch")
-    return check_launches(knn, spy, CHUNK_SITES, card, tag="_batch")
+    if not scans or not all(isinstance(body, graphs.jit) for _, body, _ in scans):
+        fail("chunked: the tracker's chunks did not run the graphed scan body")
+    return check_launches(knn, spy, CHUNK_SITES, card, tag="_batch"), scans
 
 
 def reset_in_flight(dev, frames):
@@ -2430,6 +2525,195 @@ def map_scale_ba(dev, card):
                  f"{start:.4f} at the start")
 
 
+def clone_tree(tree):
+    """A copy of every tensor in nested tuples (NamedTuples kept), lists
+    and dicts; other leaves as they are."""
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_tree(x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_tree(x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def tree_err(got, want, what):
+    """Fail unless every tensor of got equals want's: the same dtype and
+    shape, integers and flags equal, floats with max |diff| 0 (NaN where
+    NaN). Returns (tensors compared, max |diff| over the floats)."""
+    from multicol_slam_tpu_torch.utils import graphs
+
+    a, b = [], []
+    graphs._flatten(got, a)
+    graphs._flatten(want, b)
+    if len(a) != len(b):
+        fail(f"{what}: {len(a)} output tensors against {len(b)}")
+    err = 0.0
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            fail(f"{what}: output {i} is {x.dtype} {tuple(x.shape)}, want {y.dtype} "
+                 f"{tuple(y.shape)}")
+        if x.is_floating_point():
+            d = (x.double() - y.double()).abs()
+            d = torch.where(torch.isnan(x) & torch.isnan(y), torch.zeros_like(d), d)
+            e = float(d.max()) if d.numel() else 0.0
+            err = max(err, e)
+            if not e == 0.0:
+                fail(f"{what}: float output {i} differs, max |diff| {e}")
+        elif not torch.equal(x, y):
+            fail(f"{what}: output {i} ({x.dtype}) differs at "
+                 f"{int((x != y).sum())} of {x.numel()} elements")
+    return len(a), err
+
+
+def graph_line(tag):
+    """Print the graph module's counters: graphs held, captures, capture
+    seconds, replays, the pool's MiB, and each capture since ``tag``'s
+    previous print (function, local-map bucket cap, seconds)."""
+    from multicol_slam_tpu_torch.utils import graphs
+
+    st = graphs.stats()
+    new = st["log"][graph_line.seen:]
+    graph_line.seen = len(st["log"])
+    caps = [(c["fn"], max((s[0] for s in c["shapes"] if len(s) == 1), default=0),
+             round(c["seconds"], 3)) for c in new]
+    print(f"graphs after {tag}: {st['graphs_held']} held, {st['captures']} captures in "
+          f"{st['capture_s']:.3f} s, {st['replays']} replays, pool "
+          f"{st['pool_bytes'] / 2 ** 20:.1f} MiB; new captures (function, cap, s) {caps}")
+    return st
+
+
+graph_line.seen = 0
+
+
+def graph_runs(dev, knn, card, settings, frames, gt, n, tag):
+    """Phase 14 (a) for one configuration: MultiColSLAM's tracker inputs
+    (its padded extractor and match parameters) over a map lifted from
+    frame 0 at the true pose; frames 1..n rolled eagerly
+    (scan_step_inputs, working_track_step, slot_roll), each frame's step
+    inputs kept; then the graphed working_track_step on the same inputs,
+    counted, each of its 14 outputs identical to the eager step's.
+    Returns (the per-frame step arguments, keywords, the graphed step, the
+    sites' kernel JSON entries, the spy)."""
+    from multicol_slam_tpu_torch.models import matcher, tracking
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils import config_io, graphs, synthetic
+
+    slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, settings=settings,
+                        enable_loop_closing=False)
+    tr, s = slam.tracker, slam.settings
+    st = synthetic.gt_bootstrap(slam.rig, torch.tensor(gt[0], dtype=torch.float32,
+                                                       device=dev),
+                                slam._extract_padded(frames[0]), s.n_levels, s.scale_factor)
+    maps = [st[k] for k in ("X", "normal", "mind", "maxd", "cand_base", "pt_desc", "pt_mask")]
+    cap = st["X"].shape[0]
+    kw = dict(th_motion=tr.cfg.motion_th, th_local=tr.cfg.local_map_th,
+              n_levels=s.n_levels, scale_factor=s.scale_factor)
+    carry = (st["last"], st["slot_X0"], st["slot_lp0"], st["slot_has0"], st["mt0"], st["V0"])
+    args, eager = [], []
+    for b in range(1, n + 1):
+        M_last, mt_pred, lp_slot = tracking.scan_step_inputs(carry, cap)
+        a = (slam._extract_padded, slam.rig, frames[b], mt_pred, carry[1], carry[3],
+             carry[0], lp_slot, *maps, tr.params)
+        out = tracking.working_track_step(*a, **kw)
+        carry, _ = tracking.slot_roll(carry, out, st["X"], M_last)
+        args.append(a)
+        eager.append(out)
+    step = graphs.jit(tracking.working_track_step)
+    reset_launches(knn)
+    with SiteSpy(knn, matcher) as spy:
+        graphed = [step(*a, **kw) for a in args]
+    torch.cuda.synchronize()
+    n_out, err = 0, 0.0
+    for b in range(n):
+        n_out, e = tree_err(graphed[b], eager[b], f"{tag} frame {b + 1}: graphed step")
+        err = max(err, e)
+    launches = knn.hamming_nn_radius.launches
+    if launches != 2 * n or knn.hamming_nn.launches or len(step) != 1:
+        fail(f"{tag}: {launches} window-gated and {knn.hamming_nn.launches} dense-gate "
+             f"launches, {len(step)} graphs over {n} frames; want {2 * n}, 0 and 1")
+    print(f"{tag}: the graphed working_track_step equals the eager step over {n} frames: "
+          f"all 14 outputs ({n_out} tensors a frame) identical, max |diff| of the floats "
+          f"{err} (cap {cap}, K {st['slot_has0'].shape[1]}); launches {dict(spy.launches)}, "
+          f"masked {dict(spy.masked)}")
+    entries = check_launches(knn, spy, ("motion", "local_map"), card, tag="_" + tag)
+    return args, kw, step, entries, spy
+
+
+def profiled(fn, n):
+    """torch.profiler (device activity only) over fn(i) for i < n: (device
+    operations, device ms, profiled wall ms, the five kernels with the
+    most device time as (name, launches, device ms))."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    attr = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    on_dev = [e for e in ka if e.device_type != torch.autograd.DeviceType.CPU]
+    top = sorted(on_dev, key=lambda e: getattr(e, attr), reverse=True)[:5]
+    return (sum(e.count for e in on_dev), sum(getattr(e, attr) for e in on_dev) / 1e3, wall,
+            [(e.key[:60], e.count, round(getattr(e, attr) / 1e3, 3)) for e in top])
+
+
+def graph_phase(dev, knn, card, frames, gt, scans):
+    """Phase 14: the compiled main path. (a) the graphed working_track_step
+    against the eager one on phases 4-5's frames at the default settings
+    (B frames) and at phase 9's mdBRIEF settings (3 frames, masked entry A
+    inside the graph); (b) torch.profiler and the host clock over
+    PROFILE_FRAMES frames, eager against graphed; (c) phase 11 (b)'s
+    track_batch chunks, each run again through the eager scan on copies of
+    its inputs: identical. Returns the sites' kernel JSON entries."""
+    from multicol_slam_tpu_torch.models import tracking
+    from multicol_slam_tpu_torch.utils import config_io
+
+    t_a = time.perf_counter()
+    args, kw, step, entries, _ = graph_runs(
+        dev, knn, card, config_io.SlamSettings(), frames, gt, B, "graph")
+    _, _, _, md_entries, spy = graph_runs(
+        dev, knn, card, config_io.SlamSettings(**MDBRIEF), frames, gt, GRAPH_MD_FRAMES,
+        "graph_mdbrief")
+    if any(spy.masked[k] != spy.launches[k] for k in ("motion", "local_map")):
+        fail(f"graph_mdbrief: masked launches {dict(spy.masked)} of {dict(spy.launches)}")
+
+    # (b) eager against graphed, the same inputs, in turns
+    t_b = time.perf_counter()
+    runs = {"eager": lambda i: tracking.working_track_step(*args[i], **kw),
+            "graphed": lambda i: step(*args[i], **kw)}
+    ms = {k: [] for k in runs}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        for i in range(PROFILE_FRAMES):
+            ms[name].append(timed(lambda: runs[name](i))[1])
+    for name, fn in runs.items():
+        ops, dev_ms, wall, top = profiled(fn, PROFILE_FRAMES)
+        print(f"graph (b) {name} working_track_step over {PROFILE_FRAMES} frames: "
+              f"{ops / PROFILE_FRAMES:.2f} device operations a frame, "
+              f"{dev_ms / PROFILE_FRAMES:.3f} device ms a frame, busy {dev_ms / wall:.4f} of "
+              f"{wall / PROFILE_FRAMES:.3f} profiled ms a frame; unprofiled ms a frame "
+              f"{percentiles(ms[name])}; top kernels (name, launches, device ms) {top} ({card})")
+    print(f"graph (b) one graphed call between two events: "
+          f"{cuda_ms(lambda: runs['graphed'](0), reps=10, warm=2):.3f} ms ({card})")
+    t_c = time.perf_counter()
+
+    # (c) the tracker's chunks against the eager scan on the same inputs
+    for c, ((a, k), body, out) in enumerate(scans):
+        want = tracking.working_scan_chunk(*a, **k)
+        n_out, err = tree_err(out, want, f"graph (c) chunk {c}")
+        print(f"graph (c) track_batch chunk {c} ({a[2].shape[0]} frames, cap "
+              f"{a[9].shape[0]}): the graphed scan equals the eager scan, {n_out} tensors "
+              f"identical, max |diff| of the floats {err}")
+    torch.cuda.synchronize()
+    print(f"phase 14 wall s: (a) {t_b - t_a:.3f}, (b) {t_c - t_b:.3f}, (c) "
+          f"{time.perf_counter() - t_c:.3f} ({card})")
+    return entries + md_entries
+
+
 def reloc_error(m, poses, gt, at, i):
     """(m, degrees): frame i's returned pose (poses: frame -> (4, 4) or
     None) against ground truth, both relative to frame at - 1: its pose in
@@ -2659,9 +2943,11 @@ def main() -> None:
             fail(f"frame {b + 1}: the card's run disagrees with the CPU path")
 
     mark("5 against the CPU")
+    frames4, gt4 = frames, gt          # phase 14 runs these frames again
 
     # -- 6. the system from the first frame ---------------------------------
     slam, frames, gt, poses, sys_entries, sys_ref = system_phase(dev, knn, card)
+    graph_line("phase 6")
     mark("6 system")
 
     # -- 7. relocalization ---------------------------------------------------
@@ -2674,14 +2960,17 @@ def main() -> None:
 
     # -- 9. the mdBRIEF system -------------------------------------------------
     md_entries = mdbrief_phase(dev, knn, card, frames, gt)
+    graph_line("phase 9")
     mark("9 mdBRIEF system")
 
     # -- 10. the organic loop closure ------------------------------------------
     organic_entries = organic_phase(dev, knn, card)
+    graph_line("phase 10")
     mark("10 organic loop")
 
     # -- 11. async mapping, the chunked path, reset in flight, the CLI ---------
-    async_entries = async_phase(dev, knn, card, frames, gt, sys_ref)
+    async_entries, scans = async_phase(dev, knn, card, frames, gt, sys_ref)
+    graph_line("phase 11")
     mark("11 async, chunked, CLI")
 
     # -- 12. the stretch configuration, self-calibration, a dynamic scene -----
@@ -2690,6 +2979,7 @@ def main() -> None:
     selfcal_phase(dev, card, ring_slam, ring)
     mark("12b self-calibrating BA")
     dyn_entries = dynamic_phase(dev, knn, card)
+    graph_line("phase 12")
     mark("12c dynamic scene")
 
     # -- 13. the two-room tour, the sharded global BA ----------------------------
@@ -2702,12 +2992,19 @@ def main() -> None:
     map_scale_ba(dev, card)
     mark("13c map-scale BA")
     print(f"phase 13 wall s {time.perf_counter() - t13:.3f} ({card})")
+    graph_line("phase 13")
+
+    # -- 14. the compiled main path -------------------------------------------------
+    graph_entries = graph_phase(dev, knn, card, frames4, gt4, scans)
+    graph_line("phase 14")
+    del scans
+    mark("14 graphs")
 
     print(f"wall s by phase {phase_s}, whole script {time.perf_counter() - t_script:.3f} "
           f"({card})")
     print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries
                       + md_entries + organic_entries + async_entries + ring_entries
-                      + dyn_entries + room_entries}))
+                      + dyn_entries + room_entries + graph_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -266,15 +266,30 @@ __global__ void __launch_bounds__(THREADS) hamming_nn_kernel(const Params p) {
   }
 }
 
+// The dynamic shared memory above 48 KB that an instance needs, granted
+// once per device by hamming_nn_init, before any launch: a launch then
+// makes no other runtime call, so it can be captured into a CUDA graph.
+template <int W, bool MASKED, bool RADIUS>
+cudaError_t allow_smem() {
+  constexpr size_t smem = smem_bytes<W, MASKED, RADIUS>();
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(hamming_nn_kernel<W, MASKED, RADIUS>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int W>
+cudaError_t allow_smem_all() {
+  cudaError_t e = cudaSuccess;
+  const cudaError_t es[] = {allow_smem<W, false, false>(), allow_smem<W, true, false>(),
+                            allow_smem<W, false, true>(), allow_smem<W, true, true>()};
+  for (const cudaError_t x : es)
+    if (e == cudaSuccess) e = x;
+  return e;
+}
+
 template <int W, bool MASKED, bool RADIUS>
 cudaError_t launch(const Params& p, int C, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<W, MASKED, RADIUS>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        hamming_nn_kernel<W, MASKED, RADIUS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
   const dim3 grid((p.N + WARPS - 1) / WARPS, C);
   hamming_nn_kernel<W, MASKED, RADIUS><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
@@ -299,6 +314,15 @@ int launch_any(const Params& p, int C, int W, int masked, void* stream) {
 }
 
 }  // namespace
+
+// Grants every instance its shared memory on the current device; call once
+// per device before the first launch there. Returns the first cudaError_t.
+extern "C" int hamming_nn_init() {
+  const cudaError_t es[] = {allow_smem_all<4>(), allow_smem_all<8>(), allow_smem_all<16>()};
+  for (const cudaError_t e : es)
+    if (e != cudaSuccess) return (int)e;
+  return (int)cudaSuccess;
+}
 
 // Plain C entry points for ctypes. Pointers are device pointers, 16-byte
 // aligned for q, db and the masks; `stream` is a cudaStream_t. Each returns

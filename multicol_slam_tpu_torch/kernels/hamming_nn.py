@@ -14,11 +14,16 @@ of ``multicol_slam_tpu/ops/pallas/hamming_nn.py`` and share one CUDA core,
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. The kernel is built with ``nvcc`` into ``kernels/build/`` at
-first use, as a plain-C shared library loaded with ctypes. The wrappers
-may be called from several threads at once (the tracker and the async
-mapper): the first use builds and loads the library once, under a lock,
-and the launch counters are incremented under one. Each launch goes on
-the calling thread's current stream.
+first use, as a plain-C shared library loaded with ctypes; the first use
+on a device also grants the kernel's shared memory there
+(``hamming_nn_init``), so a launch makes no other runtime call and can be
+captured into a CUDA graph (``utils/graphs.py``; the graph's warm-up run
+does the first use before any capture). The wrappers may be called from
+several threads at once (the tracker and the async mapper): the library
+is built, loaded and initialized once, under a lock, and the launch
+counters are incremented under one. Each launch goes on the calling
+thread's current stream and is counted through ``graphs.on_launch``: at
+once, or, inside a capture, at every replay of the graph.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import threading
 import torch
 
 from ..ops import hamming as hm
+from ..utils import graphs
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "hamming_nn.cu")
@@ -46,6 +52,7 @@ GATE_ALIGN = 16      # entry B reads gate rows as 16-byte vectors
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
+_ready_devices: set = set()
 
 
 def _nvcc() -> str:
@@ -97,7 +104,28 @@ def _build_and_load() -> ctypes.CDLL:
     lib.hamming_nn_launch.restype = i32
     lib.hamming_nn_radius_launch.argtypes = [ptr, i64] + [ptr] * 14 + [i32] * 5 + [ptr]
     lib.hamming_nn_radius_launch.restype = i32
+    lib.hamming_nn_init.argtypes = []
+    lib.hamming_nn_init.restype = i32
     return lib
+
+
+def _init_on(dev):
+    """Grant the kernel its shared memory on dev, once per device."""
+    if dev.index in _ready_devices:
+        return
+    lib = load_library()
+    with _lib_lock:
+        if dev.index not in _ready_devices:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the Hamming-NN kernel is first used on "
+                                   f"{dev} inside a CUDA-graph capture: run the "
+                                   "function once before capturing it")
+            with torch.cuda.device(dev):
+                err = lib.hamming_nn_init()
+            if err != 0:
+                raise RuntimeError(f"Hamming-NN kernel init failed on {dev}: "
+                                   f"cudaError {err}")
+            _ready_devices.add(dev.index)
 
 
 # -- plain versions ------------------------------------------------------------
@@ -185,10 +213,20 @@ def _outputs(dev, C, N):
 
 def _run(fn, dev, *args):
     """Launch on dev's current stream; raise on any CUDA error."""
+    _init_on(dev)
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"Hamming-NN kernel launch failed: cudaError {err}")
+
+
+def _count(entry):
+    """One launch of ``entry``: counted now, or, inside a CUDA-graph
+    capture, at every replay of the graph (``graphs.on_launch``)."""
+    def bump():
+        with _count_lock:
+            entry.launches += 1
+    graphs.on_launch(bump)
 
 
 def _desc_ptr(t):
@@ -229,8 +267,7 @@ def hamming_nn(q, db, gate, q_mask=None, db_mask=None):
          _desc_ptr(q), _desc_ptr(db), gate.data_ptr(), gate.stride(1),
          _desc_ptr(q_mask), _desc_ptr(db_mask), *(o.data_ptr() for o in out),
          C, N, M, W, int(bool(masks)))
-    with _count_lock:
-        hamming_nn.launches += 1
+    _count(hamming_nn)
     return out
 
 
@@ -274,8 +311,7 @@ def hamming_nn_radius(q, db, q_uv, q_r2, q_lvl_lo, q_lvl_hi, q_ok,
          _desc_ptr(q), q_cstride, _desc_ptr(db), *(t.data_ptr() for t in fields),
          _desc_ptr(q_mask), _desc_ptr(db_mask), *(o.data_ptr() for o in out),
          C, N, M, W, int(bool(masks)))
-    with _count_lock:
-        hamming_nn_radius.launches += 1
+    _count(hamming_nn_radius)
     return out
 
 

@@ -14,9 +14,16 @@ the state machine, map bookkeeping and keyframe policy stay on the host,
 and each stage's outputs come back in one fetch. Relocalization
 (:1125-1312) draws BoW candidates, matches them, fits GP3P RANSAC and
 the pose LM, with a projection second chance. ``working_scan_chunk`` is
-a Python loop over the frames with the same carry and stacked outputs as
-the JAX package's ``lax.scan``; ``Tracker.track_chunk`` runs it over a
-chunk of steady-state frames and replays the bookkeeping from one fetch.
+a Python loop of ``working_scan_body`` over the frames with the same
+carry and stacked outputs as the JAX package's ``lax.scan``;
+``Tracker.track_chunk`` runs it over a chunk of steady-state frames and
+replays the bookkeeping from one fetch.
+
+On the card the tracker runs ``working_track_step`` and
+``working_scan_body`` as CUDA graphs (``utils/graphs.py``), as the JAX
+package runs them compiled: one capture per set of static arguments and
+input shapes (the local map's bucket ``cap`` among them), one replay a
+frame. On the CPU they run eagerly.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from ..ops import ransac, se3_np
 from ..ops.camera import world_to_img
 from ..ops.geometry import cayley2hom, hom2cayley, inv_se3
 from ..ops.rig import Rig, mt_mc
+from ..utils import graphs
 from ..utils.timing import StageTimers
 from . import initializer, matcher
 from . import optimizer as opt
@@ -283,6 +291,80 @@ def working_track_step(extract_fn, rig: Rig, images: torch.Tensor,
     return (cur,) + tuple(m_out) + tuple(l_out)
 
 
+def scan_step_inputs(carry, cap: int):
+    """What a scan step feeds ``working_track_step`` from the carry
+    (last feats, slot_X, slot_lp, slot_has, mt, V): (M_last (4, 4), the
+    predicted pose mt_pred = M_last V (6,), lp_slot (cap, C), per camera
+    the inverse of slot_lp: snapshot index -> slot, or -1)."""
+    _, _, slot_lp, _, mt, V = carry
+    C, K = slot_lp.shape
+    dev = slot_lp.device
+    M_last = cayley2hom(mt)
+    mt_pred = hom2cayley(M_last @ V)
+    ar_k = torch.arange(K, dtype=torch.int32, device=dev)[None].expand(C, K)
+    idx = torch.where(slot_lp >= 0, slot_lp, torch.full_like(slot_lp, cap))
+    inv = torch.full((C, cap + 1), -1, dtype=torch.int32, device=dev)
+    inv.scatter_(1, idx.long(), ar_k)
+    return M_last, mt_pred, inv[:, :cap].T.contiguous()
+
+
+def slot_roll(carry, step_out, X: torch.Tensor, M_last: torch.Tensor):
+    """The carry after a scan step (surviving motion inliers keep their
+    landmark, new local-map inliers take free slots, V = M_last^-1 M_cur)
+    and the step's per-frame outputs y: mt (6,), lp / has (C, K), vis
+    (cap,), n_in1, n_m1, n_in2, it1, it2 and feats (the frame's
+    Features). ``step_out``: ``working_track_step``'s outputs."""
+    _, slot_X, slot_lp, slot_has, _, _ = carry
+    (cur, match1, _, inl1, n_in1, n_m1, it1,
+     fr_ok, match2, mt2, inl_slot, inl_new, n_in2, it2) = step_out
+    C, K = slot_has.shape
+    cap = X.shape[0]
+    src_X = X[None].expand((C,) + tuple(X.shape))
+    src_lp = torch.arange(cap, dtype=torch.int32, device=X.device)[None].expand(C, cap)
+    keep = (match1 >= 0) & inl1 & slot_has
+    tgt1 = torch.where(keep, torch.clamp(match1, min=0), torch.full_like(match1, K))
+    sX1 = _scatter_rows(tgt1, slot_X, 0.0, K)
+    slp1 = _scatter_rows(tgt1, slot_lp, -1, K)
+    sh1 = _scatter_rows(tgt1, keep, False, K)
+    got2 = (match2 >= 0) & inl_new
+    tgt2 = torch.where(got2, torch.clamp(match2, min=0), torch.full_like(match2, K))
+    sX2 = _scatter_rows(tgt2, src_X, 0.0, K)
+    slp2 = _scatter_rows(tgt2, src_lp, -1, K)
+    sh2 = _scatter_rows(tgt2, got2, False, K)
+    keep_slot = sh1 & inl_slot
+    nxt_X = torch.where(keep_slot[..., None], sX1, sX2)
+    nxt_lp = torch.where(keep_slot, slp1, slp2)
+    nxt_has = keep_slot | sh2
+    V_new = inv_se3(M_last) @ cayley2hom(mt2)
+    y = dict(mt=mt2, lp=nxt_lp, has=nxt_has, vis=fr_ok.any(dim=0),
+             n_in1=n_in1, n_m1=n_m1, n_in2=n_in2, it1=it1, it2=it2, feats=cur)
+    return (cur, nxt_X, nxt_lp, nxt_has, mt2, V_new), y
+
+
+def working_scan_body(extract_fn, rig: Rig, img: torch.Tensor, carry,
+                      X: torch.Tensor, normal: torch.Tensor, mind: torch.Tensor,
+                      maxd: torch.Tensor, cand_base: torch.Tensor,
+                      pt_desc: torch.Tensor, pt_mask: torch.Tensor,
+                      params: matcher.MatchParams, th_motion: float,
+                      th_local: float, n_levels: int, scale_factor: float):
+    """One frame of ``working_scan_chunk`` (the body of the JAX package's
+    ``lax.scan``): ``working_track_step`` from the carry, then the slot
+    roll. Slots carry ``slot_lp``, an index into the frozen local-map
+    snapshot.
+
+    img: (C, H, W); carry: (last feats, slot_X (C, K, 3), slot_lp (C, K),
+    slot_has (C, K), mt (6,), V (4, 4)). Returns ``slot_roll``'s (carry
+    after the frame, y)."""
+    M_last, mt_pred, lp_slot = scan_step_inputs(carry, X.shape[0])
+    last_f, slot_X, _, slot_has, _, _ = carry
+    out = working_track_step(
+        extract_fn, rig, img, mt_pred, slot_X, slot_has, last_f,
+        lp_slot, X, normal, mind, maxd, cand_base, pt_desc, pt_mask,
+        params, th_motion=th_motion, th_local=th_local,
+        n_levels=n_levels, scale_factor=scale_factor)
+    return slot_roll(carry, out, X, M_last)
+
+
 def working_scan_chunk(extract_fn, rig: Rig, images: torch.Tensor,
                        mt0: torch.Tensor, V0: torch.Tensor, last: Features,
                        slot_X0: torch.Tensor, slot_lp0: torch.Tensor,
@@ -291,58 +373,23 @@ def working_scan_chunk(extract_fn, rig: Rig, images: torch.Tensor,
                        maxd: torch.Tensor, cand_base: torch.Tensor,
                        pt_desc: torch.Tensor, pt_mask: torch.Tensor,
                        params: matcher.MatchParams, th_motion: float,
-                       th_local: float, n_levels: int, scale_factor: float):
-    """B WORKING frames in a row: ``working_track_step`` plus the slot
-    roll between frames (surviving motion inliers keep their landmark,
-    new local-map inliers take free slots, V = M_last^-1 M_cur). Slots
-    carry ``slot_lp``, an index into the frozen local-map snapshot.
+                       th_local: float, n_levels: int, scale_factor: float,
+                       body=working_scan_body):
+    """B WORKING frames in a row: ``body`` (``working_scan_body``, or its
+    CUDA graph on the card) once per frame, the carry threaded through.
 
     images: (B, C, H, W). Returns (carry, ys): carry is (last feats,
     slot_X, slot_lp, slot_has, mt, V) after the last frame; ys stacks
     per-frame mt (B, 6), lp / has (B, C, K), vis (B, cap), n_in1, n_m1,
     n_in2, it1, it2 (B,), and feats (Features of (B, C, K, ...))."""
-    C, K = slot_has0.shape
-    cap = X.shape[0]
-    dev = X.device
-    src_X = X[None].expand((C,) + tuple(X.shape))
-    src_lp = torch.arange(cap, dtype=torch.int32, device=dev)[None].expand(C, cap)
-    ar_k = torch.arange(K, dtype=torch.int32, device=dev)[None].expand(C, K)
     carry = (last, slot_X0, slot_lp0, slot_has0, mt0, V0)
     ys = []
     for img in images:
-        last_f, slot_X, slot_lp, slot_has, mt, V = carry
-        M_last = cayley2hom(mt)
-        mt_pred = hom2cayley(M_last @ V)
-        # inverse of slot_lp per camera: snapshot index -> slot (or -1)
-        idx = torch.where(slot_lp >= 0, slot_lp, torch.full_like(slot_lp, cap))
-        inv = torch.full((C, cap + 1), -1, dtype=torch.int32, device=dev)
-        inv.scatter_(1, idx.long(), ar_k)
-        lp_slot = inv[:, :cap].T.contiguous()                  # (cap, C)
-        (cur, match1, mt1, inl1, n_in1, n_m1, it1,
-         fr_ok, match2, mt2, inl_slot, inl_new, n_in2, it2) = working_track_step(
-            extract_fn, rig, img, mt_pred, slot_X, slot_has, last_f,
-            lp_slot, X, normal, mind, maxd, cand_base, pt_desc, pt_mask,
-            params, th_motion=th_motion, th_local=th_local,
-            n_levels=n_levels, scale_factor=scale_factor)
-        keep = (match1 >= 0) & inl1 & slot_has
-        tgt1 = torch.where(keep, torch.clamp(match1, min=0), torch.full_like(match1, K))
-        sX1 = _scatter_rows(tgt1, slot_X, 0.0, K)
-        slp1 = _scatter_rows(tgt1, slot_lp, -1, K)
-        sh1 = _scatter_rows(tgt1, keep, False, K)
-        got2 = (match2 >= 0) & inl_new
-        tgt2 = torch.where(got2, torch.clamp(match2, min=0), torch.full_like(match2, K))
-        sX2 = _scatter_rows(tgt2, src_X, 0.0, K)
-        slp2 = _scatter_rows(tgt2, src_lp, -1, K)
-        sh2 = _scatter_rows(tgt2, got2, False, K)
-        keep_slot = sh1 & inl_slot
-        nxt_X = torch.where(keep_slot[..., None], sX1, sX2)
-        nxt_lp = torch.where(keep_slot, slp1, slp2)
-        nxt_has = keep_slot | sh2
-        V_new = inv_se3(M_last) @ cayley2hom(mt2)
-        ys.append(dict(mt=mt2, lp=nxt_lp, has=nxt_has, vis=fr_ok.any(dim=0),
-                       n_in1=n_in1, n_m1=n_m1, n_in2=n_in2, it1=it1, it2=it2,
-                       feats=cur))
-        carry = (cur, nxt_X, nxt_lp, nxt_has, mt2, V_new)
+        carry, y = body(extract_fn, rig, img, carry, X, normal, mind, maxd,
+                        cand_base, pt_desc, pt_mask, params, th_motion=th_motion,
+                        th_local=th_local, n_levels=n_levels,
+                        scale_factor=scale_factor)
+        ys.append(y)
     stacked = {k: torch.stack([y[k] for y in ys]) for k in ys[0] if k != "feats"}
     stacked["feats"] = Features(*(torch.stack(fs) for fs in
                                   zip(*(y["feats"] for y in ys))))
@@ -382,6 +429,12 @@ class Tracker:
             desc_bytes=cfg.desc_bytes, masked=cfg.masked,
             scale_factor=cfg.scale_factor)
         self.state = TrackState.NO_IMAGES_YET
+        # the steady-state steps: CUDA graphs on the card (the JAX
+        # package's jax.jit), eager on the CPU
+        on_card = self.dev.type == "cuda"
+        self._working_step = (graphs.jit(working_track_step) if on_card
+                              else working_track_step)
+        self._scan_body = graphs.jit(working_scan_body) if on_card else working_scan_body
         # RANSAC's sampling stream (the JAX package's PRNGKey(42))
         self.gen = torch.Generator(device=self.dev).manual_seed(42)
         self._M_c_np = rig.M_c.detach().cpu().numpy().astype(np.float64)
@@ -713,9 +766,10 @@ class Tracker:
         return n_in >= self.cfg.min_inliers_track
 
     def _track_working_fused(self, motion_in, lm_in, images):
-        """The steady-state WORKING frame (``working_track_step``):
-        extraction, motion tracking and local-map tracking chained on the
-        device, then all bookkeeping from one fetch. Returns the local-map
+        """The steady-state WORKING frame (``working_track_step``, one
+        graph replay on the card): extraction, motion tracking and
+        local-map tracking chained on the device, then all bookkeeping
+        from one fetch. Returns the local-map
         verdict, or None when the motion stage failed (the caller falls
         back to the previous-frame window search, cTracking.cpp:300-315)."""
         pts, has = motion_in
@@ -735,7 +789,7 @@ class Tracker:
             lp_slot[:P, c] = inv[local_pts]
 
         self._dispatch_n += 1
-        out = working_track_step(
+        out = self._working_step(
             self.extract, self.rig, images, self._to_dev(mt_pred),
             self._to_dev(pts), self._to_dev(has), self.last_feats,
             self._to_dev(lp_slot), arrs["X"], arrs["normal"], arrs["mind"],
@@ -800,8 +854,9 @@ class Tracker:
         over every frame) and one fetch of the stacked per-frame outputs;
         the host then replays the bookkeeping (counters, keyframe policy)
         in frame order. The throughput mode: one fetch a chunk in place of
-        one a frame (the device work is still issued frame by frame, from
-        a Python loop), and latency grows by B frames.
+        one a frame (on the card, one graph replay of the scan body a
+        frame, the carry passed through the graph's input buffers), and
+        latency grows by B frames.
 
         Against the per-frame path, as in the JAX package: the local-map
         snapshot is frozen for the chunk, and a keyframe fired at chunk
@@ -849,7 +904,8 @@ class Tracker:
                 arrs["X"], arrs["normal"], arrs["mind"], arrs["maxd"],
                 arrs["cand_base"], arrs["desc"], arrs["dmask"], self.params,
                 th_motion=self.cfg.motion_th, th_local=self.cfg.local_map_th,
-                n_levels=self.cfg.n_levels, scale_factor=self.cfg.scale_factor)
+                n_levels=self.cfg.n_levels, scale_factor=self.cfg.scale_factor,
+                body=self._scan_body)
             feats_stack = ys.pop("feats")      # stays on the device
             keys = list(ys)
             host = dict(zip(keys, fetch(*(ys[k] for k in keys))))

@@ -1,0 +1,296 @@
+"""CUDA graphs of the port's device steps: the counterpart of ``jax.jit``.
+
+The JAX package compiles its steady-state WORKING frame and the body of
+its chunk scan once for each set of static arguments and input shapes
+(``multicol_slam_tpu/models/tracking.py:272-276``, ``lax.scan``).
+``jit(fn)`` does the same with a CUDA graph: one capture of ``fn`` per
+key, replayed on every later call with that key.
+
+- The key: every non-tensor leaf of the arguments (the extractor, the
+  ``MatchParams``, thresholds, level counts: the JAX package's static
+  arguments) and each tensor leaf's shape, dtype and device. Arguments
+  are flattened through tuples (NamedTuples such as ``Features``,
+  ``Rig`` and ``BAObservations`` included), lists and dicts.
+- A key's first call runs ``fn`` once on a side stream, the warm-up a
+  capture needs (per-device constants, library handles, the kernel's
+  library), returns those outputs, then captures ``fn`` on the key's
+  static input buffers. Every later call copies its inputs into those
+  buffers, replays the graph on the caller's current stream and returns
+  copies of the outputs: the graph's own outputs are overwritten by its
+  next replay, and a caller may keep what a call returned (the next
+  frame's ``last`` features, a keyframe's features handed to the
+  mapper).
+- Every graph of a device allocates from one memory pool.
+- A capture that fails raises, naming the function and the key; nothing
+  falls back to running ``fn`` eagerly, and there is no switch to turn
+  graphs off.
+- Launch accounting: a kernel wrapper reports each launch through
+  ``on_launch``; inside a capture the report is recorded with the graph
+  and repeated at each of its replays, so launch counts stay true.
+- ``stats()``: graphs held, captures, capture seconds, replays and the
+  pool's bytes.
+
+Captures use ``capture_error_mode="thread_local"``: an async mapper's
+thread may allocate, launch and synchronize on its own stream while the
+tracker's thread captures. Only one thread captures (the tracker's).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import weakref
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+_local = threading.local()
+_lock = threading.Lock()
+_pools: dict = {}
+_streams: dict = {}
+_caches: "weakref.WeakSet[jit]" = weakref.WeakSet()
+
+
+class _Counters:
+    def __init__(self):
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+        self.log: list = []   # per capture: function, tensor input shapes, seconds
+
+
+_counters = _Counters()
+
+
+# -- launch accounting ---------------------------------------------------------
+
+def on_launch(fn: Callable[[], None]) -> None:
+    """Account for one kernel launch the calling thread makes now: call
+    ``fn`` at once, or, while this thread captures a graph through
+    ``jit``, at each replay of that graph (the launch happens then).
+    Inside a capture that other code makes, ``fn`` is not called: that
+    graph's replays are not seen here."""
+    hooks = getattr(_local, "hooks", None)
+    if hooks is not None:
+        hooks.append(fn)
+    elif not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        fn()
+
+
+def capturing() -> bool:
+    """Whether the calling thread is capturing a graph through ``jit``."""
+    return getattr(_local, "hooks", None) is not None
+
+
+# -- flattening ----------------------------------------------------------------
+
+class _Static(NamedTuple):
+    """A non-tensor leaf: part of the key, passed to ``fn`` as it is."""
+
+    value: Any
+
+
+def _flatten(tree, leaves: list):
+    """(structure, leaves appended): tuples (NamedTuples kept by type),
+    lists and dicts are walked; a tensor leaf becomes a slot number."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return len(leaves) - 1
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_flatten(x, leaves) for x in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _flatten(v, leaves)) for k, v in tree.items()))
+    return _Static(tree)
+
+
+def _unflatten(spec, leaves):
+    if isinstance(spec, int):
+        return leaves[spec]
+    if isinstance(spec, _Static):
+        return spec.value
+    kind, items = spec
+    if kind is dict:
+        return {k: _unflatten(v, leaves) for k, v in items}
+    vals = [_unflatten(x, leaves) for x in items]
+    if hasattr(kind, "_fields"):
+        return kind(*vals)
+    return kind(vals)
+
+
+def _key(spec, leaves):
+    try:
+        hash(spec)
+    except TypeError as e:
+        raise TypeError(f"a non-tensor argument is not hashable, so it cannot be part "
+                        f"of a graph's key: {e}") from None
+    return spec, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
+
+
+# -- CUDA ----------------------------------------------------------------------
+
+def _device_state(device: torch.device):
+    """(pool, side stream) of a device, made once."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    with _lock:
+        if idx not in _pools:
+            with torch.cuda.device(idx):
+                _pools[idx] = torch.cuda.graph_pool_handle()
+                _streams[idx] = torch.cuda.Stream()
+        return _pools[idx], _streams[idx]
+
+
+def _warm_up(run: Callable[[], list], device: torch.device) -> list:
+    """``run()`` once, eagerly, on the device's side stream: what a
+    capture needs built (constants, handles, the kernel's library) is
+    built here. Returns its output leaves, safe to use on the caller's
+    stream."""
+    if device.type != "cuda":
+        raise RuntimeError(f"a CUDA graph needs CUDA tensors, got tensors on {device}")
+    _, side = _device_state(device)
+    cur = torch.cuda.current_stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        outs = run()
+    cur.wait_stream(side)
+    for t in outs:
+        t.record_stream(cur)
+    return outs
+
+
+def _capture(run: Callable[[], list], device: torch.device):
+    """Capture ``run()`` into a graph of the device's pool. Returns
+    (replay, the graph's output leaves)."""
+    pool, side = _device_state(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=side,
+                          capture_error_mode="thread_local"):
+        outs = run()
+    return graph.replay, outs
+
+
+# -- the wrapper ---------------------------------------------------------------
+
+class _Entry(NamedTuple):
+    replay: Callable[[], None]
+    inputs: list          # the static input buffers
+    outputs: list         # the graph's output leaves
+    out_spec: Any
+    hooks: list           # launch reports to repeat at each replay
+
+
+class jit:
+    """``jit(fn)(*args, **kwargs)``: ``fn`` captured once per key into a
+    CUDA graph and replayed (see the module's docstring). ``fn`` must
+    return tensors in tuples, lists or dicts, must not read a device
+    tensor on the host, and must not change its inputs."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.name = getattr(fn, "__qualname__", repr(fn))
+        self._graphs: dict = {}
+        _caches.add(self)
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def __call__(self, *args, **kwargs):
+        leaves: list = []
+        spec = _flatten((args, kwargs), leaves)
+        key = _key(spec, leaves)
+        entry = self._graphs.get(key)
+        if entry is None:
+            return self._first_call(key, spec, leaves)
+        for buf, x in zip(entry.inputs, leaves):
+            buf.copy_(x)
+        entry.replay()
+        for hook in entry.hooks:
+            hook()
+        with _lock:
+            _counters.replays += 1
+        return _unflatten(entry.out_spec, [t.clone() for t in entry.outputs])
+
+    def _first_call(self, key, spec, leaves):
+        device = leaves[0].device if leaves else torch.device("cpu")
+        out_spec = []
+
+        def run_on(xs):
+            def run():
+                a, kw = _unflatten(spec, xs)
+                outs: list = []
+                out_spec[:] = [_flatten(self.fn(*a, **kw), outs)]
+                _check_outputs(self.name, out_spec[0])
+                return outs
+            return run
+
+        result = _warm_up(run_on(leaves), device)
+        spec_out = out_spec[0]
+        inputs = [x.clone(memory_format=torch.contiguous_format) for x in leaves]
+        hooks: list = []
+        t0 = time.perf_counter()
+        _local.hooks = hooks
+        try:
+            replay, outputs = _capture(run_on(inputs), device)
+        except Exception as e:
+            shapes = [tuple(t.shape) for t in leaves]
+            raise RuntimeError(f"CUDA-graph capture of {self.name} failed (tensor inputs "
+                               f"{shapes}): {type(e).__name__}: {e}") from e
+        finally:
+            _local.hooks = None
+        seconds = time.perf_counter() - t0
+        with _lock:
+            _counters.captures += 1
+            _counters.capture_s += seconds
+            _counters.log.append(dict(fn=self.name, seconds=seconds,
+                                      shapes=[tuple(t.shape) for t in leaves]))
+        self._graphs[key] = _Entry(replay, inputs, outputs, spec_out, hooks)
+        return _unflatten(spec_out, result)
+
+    def clear(self):
+        """Drop this function's graphs (their pool memory returns to the
+        shared pool)."""
+        self._graphs.clear()
+
+
+def _check_outputs(name, spec):
+    """Raise if a graphed function's output holds a non-tensor leaf: a
+    replay could not reproduce it."""
+    if isinstance(spec, _Static):
+        raise TypeError(f"{name} returned {spec.value!r}: a graphed function returns "
+                        f"tensors only")
+    if isinstance(spec, int):
+        return
+    kind, items = spec
+    for item in items:
+        _check_outputs(name, item[1] if kind is dict else item)
+
+
+# -- counters ------------------------------------------------------------------
+
+def pool_bytes() -> int:
+    """Bytes the shared pools hold on the card (segments of the caching
+    allocator owned by a pool of this module)."""
+    if not _pools:
+        return 0
+    ids = {_pool_id(p) for p in _pools.values()}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if _pool_id(seg.get("segment_pool_id")) in ids)
+
+
+def _pool_id(handle):
+    try:
+        return tuple(handle)
+    except TypeError:
+        return handle
+
+
+def stats() -> dict:
+    """Graphs held (by live ``jit`` wrappers), captures, capture seconds,
+    replays, the pools' bytes on the card, and the log of captures (each
+    one's function, tensor input shapes and seconds)."""
+    with _lock:
+        held = sum(len(c) for c in list(_caches))
+        out = dict(graphs_held=held, captures=_counters.captures,
+                   capture_s=_counters.capture_s, replays=_counters.replays,
+                   log=list(_counters.log))
+    out["pool_bytes"] = pool_bytes()
+    return out
