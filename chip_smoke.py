@@ -215,7 +215,25 @@ Phases, each fatal on failure:
      again through the eager scan body on copies of its inputs:
      identical. After each system phase the script prints the graphs
      held, the captures (function, local-map bucket, seconds), their
-     seconds in all, the replays and the pool's MiB.
+     seconds in all, the replays and the pool's MiB. (c) also splits one
+     steady chunk's ms: working_scan_chunk with the graphed body against the
+     body's graph replayed alone (the rest: input copies, output clones,
+     the Python loop, the stack).
+ 15. local mapping compiled: on the card LocalMapper runs its four units
+     (triangulation_batch, cross_camera_batch, fuse_targets_batch, the
+     local bundle_adjustment) as CUDA graphs in a pool of its own, on the
+     mapper's thread and stream under async mapping. Phases 6 and 11 (a)
+     record the first calls of each unit; each runs again eagerly and
+     through its graph (a replay) on copies of its inputs: the recorded
+     output, the replay and the eager run identical, the BA included (its
+     block sums are ordered); entry B (triangulation, cross-camera) and
+     entry A (fuse) counted at each replay and equal to their plain
+     versions; each unit's ms eager against graphed, every graphed
+     function's captures and replays, the pools' MiB. (b) the bench's
+     headline (multicol_slam_tpu_torch.bench.production_tracker) at a
+     small size. Phase 11 (b) prints the chunk scan's ms a frame (its
+     scan and fetch, apart from the walk's keyframe passes), steady chunks
+     apart from those that captured, beside phase 6's WORKING median.
 
 Each of phases 6, 7, 8, 9, 10, 11 (a) and (b), 12 (a) and (c), 13 (a)
 and 14 (a) sets the launch counts to 0 just before it drives its path and
@@ -366,6 +384,14 @@ CHUNK_SITES = ("chunk_motion", "chunk_local_map")
 GRAPH_MD_FRAMES = 3    # phase 14 (a): frames at phase 9's mdBRIEF settings
 PROFILE_FRAMES = 8     # phase 14 (b): frames profiled, eager and graphed
 CHUNK = 8              # frames a chunk of track_batch
+# phase 15: LocalMapper's graphed units, the copies kept of each one's calls
+# in each recorded phase, and the bench's headline at a small size
+MAPPING_UNITS = ("_triangulate", "_cross_camera", "_fuse", "_bundle_adjust")
+UNIT_SITE = {"_triangulate": "triangulation", "_cross_camera": "cross_camera",
+             "_fuse": "fuse", "_bundle_adjust": None}
+UNIT_RECORDS_PER_PHASE = 4
+UNIT_RECORDS: list = []
+HEADLINE_SMALL = dict(n_build=40, snap_at=24, n_scan=4, n_reps=1)
 RESET_AT = 12          # phase 11 (c): frames before the reset with a pass in flight
 CLI_FRAMES = 24        # phase 11 (d): synthetic frames of the CLI run
 # phase 12 (a): the stretch configuration (BASELINE.json's fifth), the
@@ -634,11 +660,17 @@ class SiteSpy:
     through graphs.on_launch, as the wrappers count theirs: at every
     replay of the graph, with the stream the replay runs on, by the spy
     active at the replay (a graph a phase captured replays in later
-    phases on the same system). Its inputs are not kept (at capture they
-    hold no values yet): a site's first inputs come from the graph's
-    warm-up, the eager run that precedes each capture."""
+    phases on the same system). The function that names the site is
+    fixed at the capture; what the site's name takes from its caller
+    (the chunk scan, CorrectLoop, the mapper's thread) is read at the
+    replay, since one graph serves every caller of its unit. Its inputs
+    are not kept (at capture they hold no values yet): a site's first
+    inputs come from the graph's warm-up, the eager run that precedes
+    each capture (on the tracker's thread for a mapper's unit first
+    called by a bootstrap pass)."""
 
     active = None
+    first_args: dict = {}      # site -> its first inputs, over every spy
 
     def __init__(self, knn, matcher):
         self.knn, self.matcher = knn, matcher
@@ -649,19 +681,19 @@ class SiteSpy:
     def _call(self, kind, args):
         from multicol_slam_tpu_torch.utils import graphs
 
-        site = call_site()
-        if threading.current_thread().name == "multicol-mapper":
-            site += MAPPER
+        base = call_site(context=False)
         with self.lock:
-            if site == "init" and self.launches["init"] > self.launches["init_mutual"]:
-                site = "init_mutual"           # the swapped second launch
+            if base == "init" and self.launches["init"] > self.launches["init_mutual"]:
+                base = "init_mutual"           # the swapped second launch
             if not graphs.capturing():
-                self.args.setdefault(site, (kind, args))
+                self.args.setdefault(site_in_context(base), (kind, args))
+                SiteSpy.first_args.setdefault(site_in_context(base), (kind, args))
         masked = len(args) > (10 if kind == "radius" else 3)
-        graphs.on_launch(lambda: SiteSpy.active and SiteSpy.active._count(site, masked))
+        graphs.on_launch(lambda: SiteSpy.active and SiteSpy.active._count(base, masked))
         return getattr(self.knn, ENTRY[kind])(*args)
 
-    def _count(self, site, masked):
+    def _count(self, base, masked):
+        site = site_in_context(base)
         with self.lock:
             self.launches[site] += 1
             self.masked[site] += masked
@@ -680,19 +712,71 @@ class SiteSpy:
         self.matcher.hamming_nn_radius = self.knn.hamming_nn_radius
 
 
-def call_site() -> str:
-    """The call site of the current Hamming-NN call."""
+class UnitRecorder:
+    """Stands in for one of LocalMapper's graphed units (phase 15): calls
+    it, and keeps copies of the inputs and outputs of the first
+    UNIT_RECORDS_PER_PHASE calls of ``phase``, whether the call replayed
+    a graph, and the thread that made it."""
+
+    def __init__(self, unit, name, phase):
+        self.unit, self.name, self.phase = unit, name, phase
+
+    def __call__(self, *a, **k):
+        replays = self.unit.replays
+        out = self.unit(*a, **k)
+        if sum(r["unit"] == self.name and r["phase"] == self.phase
+               for r in UNIT_RECORDS) < UNIT_RECORDS_PER_PHASE:
+            torch.cuda.current_stream().synchronize()
+            UNIT_RECORDS.append(dict(
+                unit=self.name, unit_obj=self.unit, phase=self.phase,
+                inputs=clone_tree((a, k)),
+                out=clone_tree(out), replayed=self.unit.replays > replays,
+                thread=threading.current_thread().name))
+            torch.cuda.current_stream().synchronize()
+        return out
+
+
+def record_units(slam, phase):
+    """Put a UnitRecorder before each graphed unit of the system's mapper."""
+    from multicol_slam_tpu_torch.utils import graphs
+    for name in MAPPING_UNITS:
+        unit = getattr(slam.mapper, name)
+        if not isinstance(unit, graphs.jit):
+            fail(f"{phase}: the mapper's {name} is {unit!r}, not a CUDA graph on the card")
+        setattr(slam.mapper, name, UnitRecorder(unit, name, phase))
+
+
+def _stack_names():
     names = []
     f = sys._getframe(2)
     while f is not None:
         names.append(f.f_code.co_name)
         f = f.f_back
-    site = next((SITES[n] for n in names if n in SITES), None)
+    return names
+
+
+def call_site(context: bool = True) -> str:
+    """The call site of the current Hamming-NN call: the innermost function
+    on the stack that names one, then (with ``context``) what its callers
+    add (site_in_context)."""
+    site = next((SITES[n] for n in _stack_names() if n in SITES), None)
     if site is None:
         fail("a Hamming-NN entry was called from an unknown call site")
+    return site_in_context(site) if context else site
+
+
+def site_in_context(site: str) -> str:
+    """A site named by its function, in the context of the current call
+    stack and thread: the chunk scan's tracking sites, the fuse under
+    CorrectLoop, and MAPPER appended on the async mapper's thread."""
+    names = _stack_names()
     if site in ("motion", "local_map") and "working_scan_chunk" in names:
-        return "chunk_" + site
-    return "loop_fuse" if site == "fuse" and "_correct_loop" in names else site
+        site = "chunk_" + site
+    elif site == "fuse" and "_correct_loop" in names:
+        site = "loop_fuse"
+    if threading.current_thread().name == "multicol-mapper":
+        site += MAPPER
+    return site
 
 
 def site_kind(site: str) -> str:
@@ -765,7 +849,11 @@ def check_launches(knn, spy, sites, card, tag=""):
     for site in sites:
         if not spy.launches[site]:
             fail(f"the kernel was not launched at call site {site}")
-        got_kind, args = spy.args[site]
+        # a graphed unit's first call (its warm-up) may have run in an
+        # earlier phase, or under another context than the site's replays
+        base = site.replace(MAPPER, "").replace("loop_", "")
+        got_kind, args = (spy.args.get(site) or spy.args.get(base)
+                          or SiteSpy.first_args.get(site) or SiteSpy.first_args[base])
         if got_kind != site_kind(site):
             fail(f"call site {site} used {ENTRY[got_kind]}, want {ENTRY[site_kind(site)]}")
         entries.append(site_entry(knn, site + tag, got_kind, args, spy.launches[site], card))
@@ -792,11 +880,13 @@ class StageClock:
     def __init__(self, *targets):
         self.targets = targets
         self.ms = Counter()
+        self.calls: list = []      # (label, ms) of every call, in order
 
     def _timed(self, f, label):
         def stage(*a, **k):
             out, ms = timed(lambda: f(*a, **k))
             self.ms[label] += ms
+            self.calls.append((label, ms))
             return out
         return stage
 
@@ -837,6 +927,7 @@ def system_phase(dev, knn, card):
     slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR)
     if slam.rig.M_c.device != dev:
         fail(f"MultiColSLAM with no device runs on {slam.rig.M_c.device}, not {dev}")
+    record_units(slam, "phase 6")
     gt = synthetic.bench_trajectory(SYS_FRAMES + RELOC_FRAMES)
     render = synthetic.make_renderer(slam.rig)
     frames = torch.round(render(torch.tensor(gt, dtype=torch.float32, device=dev)))
@@ -1600,7 +1691,11 @@ def organic_phase(dev, knn, card):
         s for s in RELOC_SITES + ("window_search",) if total[s])
     entries = []
     for site in sites:
-        kind, args = next(r[2][site] for r in runs.values() if site in r[2])
+        # a site whose launches were all replays of a graph another site's
+        # call captured (CorrectLoop's fuse) takes that site's inputs
+        base = site.replace("loop_", "")
+        kind, args = next(r[2].get(site) or r[2][base] for r in runs.values()
+                          if site in r[2] or base in r[2])
         entries.append(site_entry(knn, site + "_organic", kind, args, total[site], card))
     return entries
 
@@ -1638,6 +1733,7 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
     from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
 
     slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, async_mapping=True)
+    record_units(slam, "phase 11 (a)")
     mapper_thread, stream = slam._mapper_thread, slam._mapper_stream.cuda_stream
     passes, count = [], Counter()
     process, ba = slam.mapper.process_keyframe, slam.mapper._local_bundle_adjustment
@@ -1666,14 +1762,17 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
     def mapper_launches():
         return sum(spy.launches[site] for site in ASYNC_MAPPER_SITES)
 
-    def capture_noted(run, device):
+    def capture_noted(run, device, pool):
         # a capture on the tracker's thread; the held pass starts with it
+        if threading.current_thread() is mapper_thread:
+            count["mapper_captures"] += 1
+            return capture(run, device, pool)
         count["captures"] += 1
         busy = slam._mapper_busy.is_set()
         if held.is_set():
             go.set()
         before = mapper_launches()
-        out = capture(run, device)
+        out = capture(run, device, pool)
         count["captures_in_pass"] += busy
         count["mapper_launches_in_capture"] += mapper_launches() - before
         return out
@@ -1715,8 +1814,9 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
           f"({len(on_mapper)} after the bootstrap on the mapper thread and its stream), "
           f"{m.n_points()} points, {count['refused']} keyframes refused while the mapper was "
           f"busy, {len(passes) - count['ba']} passes interrupted, shutdown joined in "
-          f"{join_s:.3f} s, frame paths {dict(Counter(tr.frame_path))}; {count['captures']} "
-          f"graph captures on the tracker's thread, {count['captures_in_pass']} of them while "
+          f"{join_s:.3f} s, frame paths {dict(Counter(tr.frame_path))}; "
+          f"{count['mapper_captures']} graph captures on the mapper's thread, "
+          f"{count['captures']} on the tracker's thread, {count['captures_in_pass']} of them while "
           f"a mapping pass ran, {count['mapper_launches_in_capture']} mapper launches during "
           f"the captures")
     if init_frame is None or init_frame >= SYS_INIT_BY:
@@ -1743,10 +1843,14 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
         print(f"async frame ms, {kind}: {percentiles(xs)}; synchronous mapping (phase 6): "
               f"{percentiles(ref['frame_ms'][kind])} ({card})")
     print(f"async mapping_ms per pass: {[round(x, 3) for x in slam.mapping_ms]} ({card})")
+    # a replay runs on the mapper's stream; the warm-up before a capture on
+    # the mapper's thread runs on the side stream of the mapper's pool
+    side = slam.mapper._fuse.unit.pool.state(dev)[1].cuda_stream
     for site in ASYNC_MAPPER_SITES:
-        if spy.streams.get(site) != {stream}:
-            fail(f"async: the launches at {site} went on streams {spy.streams.get(site)}, "
-                 f"not only the mapper's {stream}")
+        got = spy.streams.get(site, set())
+        if stream not in got or not got <= {stream, side}:
+            fail(f"async: the launches at {site} went on streams {got}, not only the "
+                 f"mapper's {stream} (and its pool's side stream {side})")
     return check_launches(knn, spy, ASYNC_SITES, card, tag="_async")
 
 
@@ -1798,13 +1902,22 @@ def chunked_run(knn, card, frames, gt, ref):
     dist = [float(np.linalg.norm(res[i][:3, 3] - ref["poses"][i][:3, 3])) for i in used
             if ref["poses"][i] is not None]
     n_chunk = sum(a for a, _ in chunk_ms)
+    scan_ms = lambda xs: (f"{sum(t for _, t in xs) * 1e3 / sum(b for b, _ in xs):.3f} over "
+                          f"{sum(b for b, _ in xs)} frames" if xs else "none")
+    scan_steady = [(b, t) for b, t, cap in tr.chunk_scans if not cap]
+    scan_first = [(b, t) for b, t, cap in tr.chunk_scans if cap]
     print(f"chunked: {len(used)} frames tracked ({len(ref_used)} per frame), ATE {ate:.5f} m "
           f"(per frame {ref_ate:.5f}), {m.n_keyframes()} keyframes ({ref['n_kf']}), "
           f"{m.n_points()} points ({ref['n_pt']}), largest pose distance to the per-frame run "
           f"{max(dist):.5f} m, frame paths {dict(Counter(tr.frame_path))}, accepted per chunk "
           f"{[a for a, _ in chunk_ms]}")
+    print(f"chunked: the chunk scan (working_scan_chunk and its fetch, apart from the walk's "
+          f"keyframe passes) ms a frame: steady chunks {scan_ms(scan_steady)}, chunks that "
+          f"captured {scan_ms(scan_first)}; per frame (phase 6) WORKING "
+          f"{percentiles(ref['frame_ms']['working'])} ({card})")
     print(f"chunked ms a frame: {sum(ms for _, ms in chunk_ms) / max(n_chunk, 1):.3f} over the "
-          f"{n_chunk} chunk frames, the whole batch {wall / SYS_FRAMES:.3f}; per frame (phase 6) "
+          f"{n_chunk} chunk frames (keyframe passes included), the whole batch "
+          f"{wall / SYS_FRAMES:.3f}; per frame (phase 6) "
           f"WORKING {percentiles(ref['frame_ms']['working'])}; dispatches a steady frame "
           f"{np.mean(steady):.4f} chunked, {np.mean(ref['disp'][ref_used[0] + 2:]):.4f} per "
           f"frame ({card})")
@@ -2709,9 +2822,167 @@ def graph_phase(dev, knn, card, frames, gt, scans):
               f"{a[9].shape[0]}): the graphed scan equals the eager scan, {n_out} tensors "
               f"identical, max |diff| of the floats {err}")
     torch.cuda.synchronize()
+    if scans:
+        chunk_split(scans[-1])
     print(f"phase 14 wall s: (a) {t_b - t_a:.3f}, (b) {t_c - t_b:.3f}, (c) "
           f"{time.perf_counter() - t_c:.3f} ({card})")
     return entries + md_entries
+
+
+def chunk_split(scan):
+    """Where a steady chunk's ms go (phase 14 (c)): one recorded chunk
+    through working_scan_chunk with the graphed body (a replay a frame),
+    between two events and as host enqueue alone, against the body's
+    graph replayed as many times with no input copies, output clones or
+    stack around it."""
+    from multicol_slam_tpu_torch.models import tracking
+
+    (a, k), body, _ = scan
+    n = a[2].shape[0]
+    run = lambda: tracking.working_scan_chunk(*a, body=body, **k)
+    run()
+    whole = statistics.median(cuda_ms(run, reps=5, warm=1) for _ in range(3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    enqueue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    replays = [e.replay for e in body._graphs.values()]
+    if len(replays) != 1:
+        fail(f"graph (c): the scan body holds {len(replays)} graphs at the recorded chunk's key")
+
+    def bare():
+        for _ in range(n):
+            replays[0]()
+    bare_ms = cuda_ms(bare, reps=5, warm=1)
+    print(f"graph (c) where a steady chunk's time goes ({n} frames): working_scan_chunk "
+          f"{whole / n:.3f} ms a frame between two events, host enqueue {enqueue / n:.3f} ms a "
+          f"frame; the body's graph replayed alone {bare_ms / n:.3f} ms a frame; the input "
+          f"copies, output clones, Python loop and stack {(whole - bare_ms) / n:.3f} ms a "
+          f"frame")
+
+
+MAPPING_STAGES = (("_update_point_stats_for_kf", "point_stats"), ("_cull_map_points", "cull_points"),
+                  ("_create_new_map_points", "triangulation"),
+                  ("_create_cross_camera_points", "cross_camera"),
+                  ("_fuse_in_neighbors", "fuse"), ("_local_bundle_adjustment", "local_ba"),
+                  ("_cull_keyframes", "cull_keyframes"))
+
+
+def mapping_stages(dev, card, frames):
+    """Phase 15 (c): the mapping pass's ms by stage, graphed against eager:
+    phase 6's frames through fresh synchronous systems (loop closing off),
+    one per mode, the mapper's units graphed (the card's default) or their
+    eager functions, a StageClock over the pass's stages and units (each
+    call ended by a sync). Prints each stage's and unit's ms a call
+    (median over the passes after the bootstrap's two, and the first
+    call apart) and each pass's ms."""
+    from multicol_slam_tpu_torch.models import local_mapping
+    from multicol_slam_tpu_torch.models.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils import config_io
+
+    out = {}
+    for mode in ("graphed", "eager"):
+        slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, enable_loop_closing=False)
+        if mode == "eager":
+            for name in MAPPING_UNITS:
+                setattr(slam.mapper, name, getattr(slam.mapper, name).fn)
+        targets = [(slam.mapper, a, lb) for a, lb in MAPPING_STAGES] + \
+            [(slam.mapper, u, "unit" + u) for u in MAPPING_UNITS] + \
+            [(local_mapping, "assemble_ba_problem", "assemble_ba")]
+        with StageClock(*targets) as clock:
+            for i in range(SYS_FRAMES):
+                slam.track(frames[i], i / 25.0)
+        slam.shutdown()
+        by = {}
+        for label, ms in clock.calls:
+            by.setdefault(label, []).append(ms)
+        line = ", ".join(f"{lb} first {xs[0]:.3f} then {percentiles(xs[1:])}"
+                         for lb, xs in by.items())
+        print(f"phase 15 (c) {mode} mapping: passes ms {[round(x, 3) for x in slam.mapping_ms]}; "
+              f"ms a call by stage and unit: {line} ({card})")
+        out[mode] = (list(slam.mapping_ms), by)
+    return out
+
+
+def mapping_phase(dev, knn, card, frames):
+    """Phase 15: LocalMapper's four graphed units. Every call recorded in
+    phases 6 and 11 (a) (UnitRecorder) runs again eagerly (the unit's own
+    function) and through its graph (a replay: the key was captured) on
+    copies of its inputs: the recorded output, the replay and the eager
+    run identical (integers and flags equal, floats max |diff| 0: the BA's
+    block sums run in a fixed order), each replay a replay
+    and not a capture, entry B at triangulation and cross-camera and entry
+    A at fuse launched once a replay inside the graph and counted at the
+    replay. Prints each unit's ms, eager against graphed, the captures and
+    replays of every graphed function and the pools' MiB. Then (b) the
+    bench's headline at a small size, and (c) mapping_stages on phase 6's
+    frames. Returns the sites' kernel JSON entries."""
+    from multicol_slam_tpu_torch import bench
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.utils import graphs
+
+    if not UNIT_RECORDS:
+        fail("phase 15: no mapping unit call was recorded")
+    by_unit = Counter(r["unit"] for r in UNIT_RECORDS)
+    for name in MAPPING_UNITS:
+        if not by_unit[name]:
+            fail(f"phase 15: {name} was never called in phases 6 and 11 (a)")
+    units = {}
+    ms = {name: {"eager": [], "graphed": []} for name in MAPPING_UNITS}
+    reset_launches(knn)
+    n_replayed = Counter()
+    with SiteSpy(knn, matcher) as spy:
+        for i, r in enumerate(UNIT_RECORDS):
+            a, k = r["inputs"]
+            unit = r["unit_obj"]
+            units[r["unit"]] = unit
+            replays, captures = unit.replays, unit.captures
+            want, t_e = timed(lambda: unit.fn(*a, **k))
+            got, t_g = timed(lambda: unit(*a, **k))
+            if unit.captures != captures or unit.replays != replays + 1:
+                fail(f"phase 15: {r['unit']} call {i} did not replay its graph")
+            ms[r["unit"]]["eager"].append(t_e)
+            ms[r["unit"]]["graphed"].append(t_g)
+            tree_err(got, want, f"phase 15: {r['unit']} ({r['phase']}) replay against eager")
+            tree_err(r["out"], want, f"phase 15: {r['unit']} ({r['phase']}, "
+                                     f"{'a replay' if r['replayed'] else 'the warm-up'} on "
+                                     f"{r['thread']}) recorded against eager")
+            n_replayed[r["unit"]] += r["replayed"]
+    # the eager reruns launched outside any graph; the replays inside
+    for name, site in UNIT_SITE.items():
+        if site is None:
+            continue
+        want_n = 2 * by_unit[name]            # one launch eager, one at the replay
+        if spy.launches[site] != want_n:
+            fail(f"phase 15: {spy.launches[site]} launches at {site}, want {want_n}")
+    entries = check_launches(knn, spy, [s for s in UNIT_SITE.values() if s], card,
+                             tag="_mapping_graph")
+    for name in MAPPING_UNITS:
+        print(f"phase 15: {name} ({units[name].name}): {by_unit[name]} recorded calls "
+              f"({n_replayed[name]} of them replays in their phase), each recorded output, "
+              f"its replay now and its eager run identical; ms a call eager "
+              f"{percentiles(ms[name]['eager'])}, graphed {percentiles(ms[name]['graphed'])} "
+              f"({card})")
+    st = graphs.stats()
+    for fn, c in sorted(st["by_fn"].items()):
+        print(f"phase 15: graphs of {fn}: {c['captures']} captures in {c['capture_s']:.3f} s, "
+              f"{c['replays']} replays, {c['graphs_held']} held, pool {c['pool']}")
+    print(f"phase 15: pools MiB {({k: round(v / 2 ** 20, 1) for k, v in st['pools'].items()})} "
+          f"({card})")
+
+    # (b) the bench's headline at a small size, on the card
+    t0 = time.perf_counter()
+    fps, diag = bench.production_tracker(dev, **HEADLINE_SMALL)
+    print(f"phase 15 (b): the bench's headline at {HEADLINE_SMALL}: {fps:.3f} frames/s, "
+          f"{diag['ms_per_frame']:.3f} ms a frame, local-map inliers median "
+          f"{diag['inliers_median']}, map {diag['map_keyframes']} keyframes "
+          f"{diag['map_points']} points, scan body {diag['scan_body']}, "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    if not np.isfinite(fps) or fps <= 0:
+        fail(f"phase 15 (b): the headline gave {fps} frames/s")
+    mapping_stages(dev, card, frames)
+    return entries
 
 
 def reloc_error(m, poses, gt, at, i):
@@ -3000,11 +3271,17 @@ def main() -> None:
     del scans
     mark("14 graphs")
 
+    # -- 15. local mapping's graphed units, the bench's headline ---------------------
+    mapping_entries = mapping_phase(dev, knn, card, frames)
+    UNIT_RECORDS.clear()
+    graph_line("phase 15")
+    mark("15 mapping graphs")
+
     print(f"wall s by phase {phase_s}, whole script {time.perf_counter() - t_script:.3f} "
           f"({card})")
     print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries
                       + md_entries + organic_entries + async_entries + ring_entries
-                      + dyn_entries + room_entries + graph_entries}))
+                      + dyn_entries + room_entries + graph_entries + mapping_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,16 @@ on a host-assembled static-shape problem; culling is host numpy. The
 mapper runs when called: in the tracking thread, or in the system's
 mapper thread under async mapping, where ``interrupt_check`` lets a
 pending keyframe cut a pass short.
+
+The JAX package jits four of these units (``triangulation_batch``,
+``cross_camera_batch``, ``fuse_targets_batch`` and the local
+``bundle_adjustment``). On the card ``LocalMapper`` runs them as CUDA
+graphs (``utils/graphs.py``) in a memory pool of its own, since under
+async mapping they replay on the mapper's stream while the tracker's
+graphs replay on the tracker's; on the CPU they run eagerly. A graph pays
+off only when its key comes back: the local BA's and the fuse's padded
+shapes grow by factors of four (``coarse_bucket``), so that over a run
+the BA takes a few shapes and replays each.
 """
 
 from __future__ import annotations
@@ -26,11 +36,12 @@ from ..ops import geometry as geo
 from ..ops import se3_np
 from ..ops.camera import world_to_img
 from ..ops.rig import Rig
+from ..utils import graphs
 from . import matcher
 from . import optimizer as opt
 from .extractor import Features
 from .map import MapStore
-from .tracking import bucket, fetch, frustum_check, to_device
+from .tracking import fetch, frustum_check, to_device
 
 # Reference gates (cLocalMapping.cpp:39-43, 244-379)
 MIN_BASELINE_DEPTH_RATIO = 0.01   # :253
@@ -41,6 +52,21 @@ CULL_FOUND_RATIO = 0.25           # MapPointCulling :199
 KF_CULL_REDUNDANT = 0.9           # KeyFrameCulling :585
 KF_CULL_MIN_OBS = 5               # maxNrObs, KeyFrameCulling :522
 KF_CULL_PREGATE_OBS = 3           # Observations() > 3 pre-gate :548
+# cos of the parallax gate as float32 computes it (a Python float, so a
+# graphed unit makes no tensor from host data)
+_COS_PARALLAX = float(torch.cos(torch.deg2rad(torch.tensor(TRIANG_PARALLAX_DEG,
+                                                           dtype=torch.float32))))
+
+
+def coarse_bucket(n: int, minimum: int) -> int:
+    """Round up to ``minimum`` times a power of four: the padded shapes of
+    the local BA and the fuse, coarse enough that a graph's key comes back
+    as the map grows. Padding is inert: padded observations are invalid,
+    padded points and keyframes fixed, padded fuse candidates invalid."""
+    b = minimum
+    while b < n:
+        b *= 4
+    return b
 
 
 def _stack_features(fs) -> Features:
@@ -75,9 +101,7 @@ def _triangulate_and_gate(cam1, cam2, xy1, xy2_all, r1, ray2_all, m, Trel, Tcw):
     e1 = torch.linalg.norm(world_to_img(cam1.expand(1), X1) - xy1, dim=-1)
     e2 = torch.linalg.norm(world_to_img(cam2.expand(1), X2) - xy2, dim=-1)
     dist = torch.linalg.norm(X1, dim=-1)
-    cos_th = torch.cos(torch.deg2rad(torch.tensor(TRIANG_PARALLAX_DEG,
-                                                  dtype=X1.dtype, device=X1.device)))
-    good = ((m >= 0) & (z1 > 0) & (z2 > 0) & (cosp < cos_th)
+    good = ((m >= 0) & (z1 > 0) & (z2 > 0) & (cosp < _COS_PARALLAX)
             & (e1 < TRIANG_REPROJ_TH) & (e2 < TRIANG_REPROJ_TH)
             & (dist < TRIANG_MAX_DIST) & torch.isfinite(X1).all(-1))
     Xw = torch.einsum("bkj,bij->bki", X1, Tcw[:, :3, :3]) + Tcw[:, None, :3, 3]
@@ -199,7 +223,7 @@ def assemble_ba_problem(m: MapStore, kfs: list[int], fixed_mask: np.ndarray,
     kf_to_idx[kfs_a] = np.arange(len(kfs), dtype=np.int32)
     pti_r = np.searchsorted(pts, rows[:, 0]).astype(np.int32)
 
-    cap = bucket(K, 512) + 1
+    cap = coarse_bucket(K, 2048) + 1
     uv = np.zeros((cap, 2), np.float32)
     kfi = np.zeros(cap, np.int32)
     cami = np.zeros(cap, np.int32)
@@ -214,7 +238,7 @@ def assemble_ba_problem(m: MapStore, kfs: list[int], fixed_mask: np.ndarray,
     valid[:K] = True
     # per-point observation table, padded with the invalid row cap - 1
     counts = np.bincount(pti_r, minlength=len(pts))
-    Mo = bucket(int(max(counts.max(), 1)), 4)
+    Mo = coarse_bucket(int(max(counts.max(), 1)), 8)
     pt_obs_tab = np.full((len(pts), Mo), cap - 1, np.int32)
     order2 = np.argsort(pti_r, kind="stable")
     group_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
@@ -222,8 +246,8 @@ def assemble_ba_problem(m: MapStore, kfs: list[int], fixed_mask: np.ndarray,
     pt_obs_tab[pti_r[order2], pos] = order2
     # bucket the keyframe and point axes; padded ones are fixed
     P, N = len(pts), len(kfs)
-    Pcap = bucket(P, 256)
-    Ncap = bucket(N, 8)
+    Pcap = coarse_bucket(P, 1024)
+    Ncap = coarse_bucket(N, 16)
     pt_obs_tab = np.concatenate(
         [pt_obs_tab, np.full((Pcap - P, Mo), cap - 1, np.int32)], 0)
     fixed_kf = np.concatenate([fixed_mask, np.ones(Ncap - N, bool)])
@@ -260,6 +284,14 @@ class LocalMapper:
         self.interrupt_check = None
         # host copy of the rig extrinsics for the point statistics
         self._M_c_np = self.rig.M_c.detach().cpu().numpy().astype(np.float64)
+        # the JAX package's four jitted units: CUDA graphs on the card, in
+        # the mapper's own pool, eager on the CPU
+        units = (triangulation_batch, cross_camera_batch, fuse_targets_batch,
+                 opt.bundle_adjustment)
+        if self.dev.type == "cuda":
+            pool = graphs.Pool("mapper")
+            units = tuple(graphs.jit(u, pool) for u in units)
+        self._triangulate, self._cross_camera, self._fuse, self._bundle_adjust = units
 
     def _to_dev(self, a) -> torch.Tensor:
         return to_device(a, self.dev)
@@ -371,7 +403,7 @@ class LocalMapper:
             f2_list.append(m.kf_features[nkf])
         while len(f2_list) < NB:
             f2_list.append(f1)    # pad rows; free2 = False never matches
-        match, Xw, good = fetch(*triangulation_batch(
+        match, Xw, good = fetch(*self._triangulate(
             self.rig, f1, self._to_dev(m.kf_pt[kf] < 0), _stack_features(f2_list),
             self._to_dev(free2), self._to_dev(E), self._to_dev(Trel),
             self._to_dev(Tcw.astype(np.float32)), self.params))
@@ -428,7 +460,7 @@ class LocalMapper:
             np.linalg.inv(Mc[c1]), np.linalg.inv(Mc[c2]))
             for c1, c2, _ in pairs]).astype(np.float32)
         Tcw = np.stack([M1 @ Mc[c1] for c1, _, _ in pairs]).astype(np.float32)
-        match, Xw, good = fetch(*cross_camera_batch(
+        match, Xw, good = fetch(*self._cross_camera(
             self.rig, f, self._to_dev(m.kf_pt[kf] < 0), self._to_dev(i1),
             self._to_dev(i2), self._to_dev(E), self._to_dev(Trel),
             self._to_dev(Tcw), self.params))
@@ -505,16 +537,16 @@ class LocalMapper:
         if len(pts) == 0 or not targets:
             return
         P = len(pts)
-        cap = bucket(P, 256)
+        cap = coarse_bucket(P, 1024)
         pad = lambda a, fill=0: np.concatenate(
             [a, np.full((cap - P,) + a.shape[1:], fill, a.dtype)], 0)
         Tn = len(targets)
-        Tcap = bucket(Tn, 4)
+        Tcap = coarse_bucket(Tn, 4)
         tg = targets + [targets[-1]] * (Tcap - Tn)
         feats = _stack_features([m.kf_features[t] for t in tg])
         poses = np.stack([m.kf_pose[t] for t in tg]).astype(np.float32)
         occ = np.stack([m.kf_pt[t] >= 0 for t in tg])
-        match = fetch(fuse_targets_batch(
+        match = fetch(self._fuse(
             self.rig, self._to_dev(poses), feats, self._to_dev(occ),
             self._to_dev(pad(m.pt_pos[pts])), self._to_dev(pad(m.pt_normal[pts])),
             self._to_dev(pad(m.pt_min_dist[pts])),
@@ -585,7 +617,7 @@ class LocalMapper:
         if built is None:
             return
         problem, mt0, X0, pts, rows = built
-        mt, X, chi2 = fetch(*opt.bundle_adjustment(
+        mt, X, chi2 = fetch(*self._bundle_adjust(
             self.rig, self._to_dev(mt0), self._to_dev(X0), problem,
             huber=opt.HUBER_LOCAL, iters=self.ba_iters))
         for i, k in enumerate(kfs):

@@ -234,6 +234,55 @@ class BAProblem(NamedTuple):
     fixed_pt: torch.Tensor     # (P,) bool
 
 
+SPREAD = 1024   # targets past n that share the rows outside ``live`` (_segments)
+
+
+def _segments(idx: torch.Tensor, n: int, live: torch.Tensor):
+    """(order, lengths): the rows of ``idx`` (K,) sorted by target (a
+    stable sort, no host read) and the rows each target receives. Rows
+    outside ``live`` go to SPREAD targets past ``n``, dropped after the
+    sum: gathered into one target they would make one thread sum them
+    all."""
+    spread = n + torch.arange(idx.shape[0], device=idx.device) % SPREAD
+    tgt = torch.where(live, idx.long(), spread)
+    lengths = torch.zeros(n + SPREAD, dtype=torch.long, device=tgt.device).index_add_(
+        0, tgt, torch.ones_like(tgt))
+    return torch.argsort(tgt, stable=True), lengths
+
+
+def _segment_sum(seg, vals: torch.Tensor, n: int) -> torch.Tensor:
+    """The rows of ``vals`` summed per target of ``_segments``, each
+    target's rows one after another in row order (``segment_reduce``: one
+    thread a target and column). Returns (n, ...)."""
+    order, lengths = seg
+    return torch.segment_reduce(vals[order], "sum", lengths=lengths, unsafe=True)[:n]
+
+
+class RowSum:
+    """Rows summed into ``n`` targets by an index table ``idx`` (K,), the
+    same sum at every call. On the CPU ``index_add_`` adds the rows one
+    after another in row order. On CUDA ``index_add_`` adds with atomics,
+    in no fixed order, so a CUDA graph's replay and an eager call would
+    differ; there the rows are sorted by target once and each call sums
+    each target's rows in that order (``_segment_sum``). Rows outside
+    ``live`` (K,) add exact zeros (the padding) and are left out there."""
+
+    def __init__(self, idx: torch.Tensor, n: int, live: torch.Tensor):
+        self.idx, self.n = idx.long(), n
+        self.seg = _segments(idx, n, live) if self.idx.is_cuda else None
+
+    def add_to(self, out: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        """``out`` (n, ...) plus the sums of ``vals`` (K, ...); on the CPU
+        ``out`` is updated in place."""
+        if self.seg is None:
+            return out.index_add_(0, self.idx, vals)
+        return out + _segment_sum(self.seg, vals, self.n)
+
+    def sum(self, vals: torch.Tensor) -> torch.Tensor:
+        return self.add_to(torch.zeros((self.n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                                       device=vals.device), vals)
+
+
 def make_ba_blocks(rig: Rig, obs: BAObservations, fixed_kf: torch.Tensor,
                    fixed_pt: torch.Tensor, n_kf: int, n_pt: int, huber: float):
     """The per-observation half of a Schur BA step over one observation
@@ -244,7 +293,8 @@ def make_ba_blocks(rig: Rig, obs: BAObservations, fixed_kf: torch.Tensor,
       Hxx (P, 3, 3), gx (P, 3), E (K, 6, 3), robust cost at the input):
       Huber-weighted normal-equation blocks from the written-out
       Jacobians (``pose_jacobian``, ``point_jacobian``), those of fixed
-      keyframes and fixed points zeroed, summed by ``index_add_``;
+      keyframes and fixed points zeroed, summed per keyframe and per
+      point by ``RowSum`` (a fixed order);
     - ``cost_of(mt_all, X_all)`` -> (robust cost, per-observation chi2 (K,)).
 
     Rows with ``valid`` False weigh nothing."""
@@ -254,6 +304,7 @@ def make_ba_blocks(rig: Rig, obs: BAObservations, fixed_kf: torch.Tensor,
     Mc = cayley2hom(rig.M_c_min)[cam]                        # (K, 4, 4)
     fix_kf = fixed_kf[kf][:, None, None]
     fix_pt = fixed_pt[pt][:, None, None]
+    by_kf, by_pt = RowSum(kf, N, obs.valid), RowSum(pt, P, obs.valid)
 
     def project(mt_all, X_all):
         T = inv_se3(cayley2hom(mt_all)[kf] @ Mc)
@@ -276,14 +327,10 @@ def make_ba_blocks(rig: Rig, obs: BAObservations, fixed_kf: torch.Tensor,
         Jx = torch.where(fix_pt, zero, Jx)
         wJp = Jp * w[:, None, None]
         wJx = Jx * w[:, None, None]
-        Hpp = torch.zeros((N, 6, 6), dtype=dt, device=dev).index_add_(
-            0, kf, torch.einsum("kri,krj->kij", wJp, Jp))
-        gp = torch.zeros((N, 6), dtype=dt, device=dev).index_add_(
-            0, kf, torch.einsum("kri,kr->ki", wJp, r))
-        Hxx = torch.zeros((P, 3, 3), dtype=dt, device=dev).index_add_(
-            0, pt, torch.einsum("kri,krj->kij", wJx, Jx))
-        gx = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
-            0, pt, torch.einsum("kri,kr->ki", wJx, r))
+        Hpp = by_kf.sum(torch.einsum("kri,krj->kij", wJp, Jp))
+        gp = by_kf.sum(torch.einsum("kri,kr->ki", wJp, r))
+        Hxx = by_pt.sum(torch.einsum("kri,krj->kij", wJx, Jx))
+        gx = by_pt.sum(torch.einsum("kri,kr->ki", wJx, r))
         E = torch.einsum("kri,krj->kij", wJp, Jx)                # (K, 6, 3)
         return Hpp, gp, Hxx, gx, E, cost
 
@@ -301,7 +348,8 @@ def make_schur_solve(kf: torch.Tensor, valid: torch.Tensor, pt_obs: torch.Tensor
     I) - sum_p E C^-1 E^T folded in one observation row at a time (peak
     memory (P, M, 6, 6), not (P, M, M, 6, 6)), identity rows and columns
     with a zero gradient for fixed keyframes, one dense solve, and the
-    points back-substituted."""
+    points back-substituted. Every sum into keyframes or keyframe pairs is
+    a ``RowSum`` (a fixed order), its table made once."""
     N = n_kf
     dev = valid.device
     pt_obs = pt_obs.long()
@@ -311,6 +359,10 @@ def make_schur_solve(kf: torch.Tensor, valid: torch.Tensor, pt_obs: torch.Tensor
     fixed_rc = fixed6[:, None] | fixed6[None, :]
     diag = torch.arange(N, device=dev) * (N + 1)
     pair = (kf_pad[:, :, None] * N + kf_pad[:, None, :])     # (P, M, M)
+    by_pair = [RowSum(pair[:, mrow].reshape(-1), N * N,
+                      (ok_pad[:, mrow, None] & ok_pad).reshape(-1))
+               for mrow in range(pair.shape[1])]
+    by_kf = RowSum(kf_pad.reshape(-1), N, ok_pad.reshape(-1))
 
     def solve(Hpp, gp, Hxx, gx, E, lam):
         dt = Hxx.dtype
@@ -326,14 +378,13 @@ def make_schur_solve(kf: torch.Tensor, valid: torch.Tensor, pt_obs: torch.Tensor
         # S = blockdiag(Hpp + lam I) - sum_p T E^T over keyframe pairs,
         # one observation row at a time (peak memory (P, M, 6, 6))
         S = torch.zeros((N * N, 6, 6), dtype=dt, device=dev)
-        for mrow in range(Tm.shape[1]):
+        for mrow, seg in enumerate(by_pair):
             contrib = torch.einsum("pik,pnjk->pnij", Tm[:, mrow], Epad)
-            S.index_add_(0, pair[:, mrow].reshape(-1), contrib.reshape(-1, 6, 6))
+            S = seg.add_to(S, contrib.reshape(-1, 6, 6))
         S = -S
         S[diag] = S[diag] + Hpp + lam * eye6
         Tg = torch.einsum("pmik,pk->pmi", Tm, gx)                # (P, M, 6)
-        g_red = gp - torch.zeros((N, 6), dtype=dt, device=dev).index_add_(
-            0, kf_pad.reshape(-1), Tg.reshape(-1, 6))
+        g_red = gp - by_kf.sum(Tg.reshape(-1, 6))
         Smat = S.reshape(N, N, 6, 6).permute(0, 2, 1, 3).reshape(6 * N, 6 * N)
         # fixed poses: identity rows / columns, zero gradient
         Smat = torch.where(fixed_rc, torch.eye(6 * N, dtype=dt, device=dev), Smat)
@@ -374,8 +425,9 @@ def bundle_adjustment(rig: Rig, mt_min0: torch.Tensor, X0: torch.Tensor,
 
     Port of the JAX package's ``bundle_adjustment``: the per-observation
     Jacobians are written out (``make_ba_blocks``) in place of
-    ``jax.jacfwd``; block sums use ``index_add_``, whose order is not
-    fixed on CUDA; the ``while_loop`` becomes ``iters`` masked steps that
+    ``jax.jacfwd``; the block sums are ``RowSum``s, in a fixed order on
+    the card too, so a CUDA graph of the BA replays its eager result bit
+    for bit; the ``while_loop`` becomes ``iters`` masked steps that
     freeze once an accepted step's relative gain falls under GAIN_EPS, so
     the device never waits for the host. ``early_stop=False`` runs every
     one of the ``iters`` steps (a fixed count to time by).

@@ -468,6 +468,10 @@ class Tracker:
         self._dispatch_n = 0
         # per-stage timings (cTracking.h:119-121)
         self.timers = StageTimers()
+        # per chunk scan (track_chunk): (frames, seconds of the scan and its
+        # fetch, whether the scan body captured a graph in it); a chunk that
+        # captured paid the warm-up and the capture
+        self.chunk_scans: list[tuple[int, float, bool]] = []
 
         # callbacks wired by the System
         self.on_new_keyframe = None        # fn(kf_id)
@@ -894,6 +898,7 @@ class Tracker:
         slot_lp0[hs] = id_to_lp[self.last_pt[hs]]
         hs &= slot_lp0 >= 0     # landmarks outside the snapshot do not carry
 
+        captures = getattr(self._scan_body, "captures", 0)
         with self.timers.time("working_chunk"):
             self._dispatch_n += 1
             carry, ys = working_scan_chunk(
@@ -909,6 +914,8 @@ class Tracker:
             feats_stack = ys.pop("feats")      # stays on the device
             keys = list(ys)
             host = dict(zip(keys, fetch(*(ys[k] for k in keys))))
+        self.chunk_scans.append((B, self.timers.samples["working_chunk"][-1],
+                                 getattr(self._scan_body, "captures", 0) > captures))
 
         entry_mt = self.last_mt.copy()
         mt_arr = host["mt"]

@@ -20,7 +20,12 @@ key, replayed on every later call with that key.
   next replay, and a caller may keep what a call returned (the next
   frame's ``last`` features, a keyframe's features handed to the
   mapper).
-- Every graph of a device allocates from one memory pool.
+- Graphs allocate from the memory pool of their ``Pool`` (one memory
+  pool and one side stream per device): graphs of one pool may share
+  memory, so they replay one at a time; graphs that replay at the same
+  time on two threads' streams (the tracker's steps and the async
+  mapper's units) hold two pools. ``jit`` without a pool uses the
+  module's shared one.
 - A capture that fails raises, naming the function and the key; nothing
   falls back to running ``fn`` eagerly, and there is no switch to turn
   graphs off.
@@ -28,15 +33,25 @@ key, replayed on every later call with that key.
   ``on_launch``; inside a capture the report is recorded with the graph
   and repeated at each of its replays, so launch counts stay true.
 - ``stats()``: graphs held, captures, capture seconds, replays and the
-  pool's bytes.
+  pools' bytes, in all and per graphed function.
 
-Captures use ``capture_error_mode="thread_local"``: an async mapper's
-thread may allocate, launch and synchronize on its own stream while the
-tracker's thread captures. Only one thread captures (the tracker's).
+Captures use ``capture_error_mode="thread_local"``: one thread may
+allocate, launch and synchronize on its own stream while another
+captures. Captures themselves are serialized across threads (one at a
+time in the process; ``torch.cuda.graph`` synchronizes the device and
+empties the allocator's cache before it begins, which would break
+another thread's capture); a warm-up runs on the side stream of the
+function's pool, outside that lock. Python's cyclic garbage collector
+is off during a capture: a collection inside it could destroy another
+graph, or free a pool's memory, on the capturing thread, a CUDA call the
+capture forbids (on the H100 a capture of the tracker's step failed on
+such a call of its own thread while an earlier system waited for the
+collector).
 """
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 import weakref
@@ -46,9 +61,9 @@ import torch
 
 _local = threading.local()
 _lock = threading.Lock()
-_pools: dict = {}
-_streams: dict = {}
+_capture_lock = threading.Lock()
 _caches: "weakref.WeakSet[jit]" = weakref.WeakSet()
+_all_pools: "weakref.WeakSet[Pool]" = weakref.WeakSet()
 
 
 class _Counters:
@@ -56,7 +71,8 @@ class _Counters:
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
-        self.log: list = []   # per capture: function, tensor input shapes, seconds
+        self.log: list = []   # per capture: function, pool, tensor input shapes, seconds
+        self.by_fn: dict = {}  # function -> captures, capture_s, replays
 
 
 _counters = _Counters()
@@ -128,25 +144,42 @@ def _key(spec, leaves):
 
 # -- CUDA ----------------------------------------------------------------------
 
-def _device_state(device: torch.device):
-    """(pool, side stream) of a device, made once."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    with _lock:
-        if idx not in _pools:
-            with torch.cuda.device(idx):
-                _pools[idx] = torch.cuda.graph_pool_handle()
-                _streams[idx] = torch.cuda.Stream()
-        return _pools[idx], _streams[idx]
+class Pool:
+    """A group of graphs' memory: per device one CUDA-graph memory pool and
+    one side stream (the warm-ups' and the captures'), made at first use.
+    The graphs of one pool may share memory, so they must replay one at a
+    time: graphs that can replay at the same time on two streams belong
+    to two pools."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._state: dict = {}
+        _all_pools.add(self)
+
+    def state(self, device: torch.device):
+        """(pool handle, side stream) on the device, made once."""
+        idx = device.index if device.index is not None else torch.cuda.current_device()
+        with _lock:
+            if idx not in self._state:
+                with torch.cuda.device(idx):
+                    self._state[idx] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream())
+            return self._state[idx]
+
+    def handles(self) -> list:
+        with _lock:
+            return [h for h, _ in self._state.values()]
 
 
-def _warm_up(run: Callable[[], list], device: torch.device) -> list:
-    """``run()`` once, eagerly, on the device's side stream: what a
-    capture needs built (constants, handles, the kernel's library) is
-    built here. Returns its output leaves, safe to use on the caller's
-    stream."""
+SHARED = Pool("shared")
+
+
+def _warm_up(run: Callable[[], list], device: torch.device, pool: Pool) -> list:
+    """``run()`` once, eagerly, on the pool's side stream: what a capture
+    needs built (constants, handles, the kernel's library) is built here.
+    Returns its output leaves, safe to use on the caller's stream."""
     if device.type != "cuda":
         raise RuntimeError(f"a CUDA graph needs CUDA tensors, got tensors on {device}")
-    _, side = _device_state(device)
+    _, side = pool.state(device)
     cur = torch.cuda.current_stream(device)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
@@ -157,12 +190,12 @@ def _warm_up(run: Callable[[], list], device: torch.device) -> list:
     return outs
 
 
-def _capture(run: Callable[[], list], device: torch.device):
-    """Capture ``run()`` into a graph of the device's pool. Returns
+def _capture(run: Callable[[], list], device: torch.device, pool: Pool):
+    """Capture ``run()`` into a graph of the pool on the device. Returns
     (replay, the graph's output leaves)."""
-    pool, side = _device_state(device)
+    handle, side = pool.state(device)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, stream=side,
+    with torch.cuda.graph(graph, pool=handle, stream=side,
                           capture_error_mode="thread_local"):
         outs = run()
     return graph.replay, outs
@@ -179,14 +212,18 @@ class _Entry(NamedTuple):
 
 
 class jit:
-    """``jit(fn)(*args, **kwargs)``: ``fn`` captured once per key into a
-    CUDA graph and replayed (see the module's docstring). ``fn`` must
-    return tensors in tuples, lists or dicts, must not read a device
-    tensor on the host, and must not change its inputs."""
+    """``jit(fn, pool)(*args, **kwargs)``: ``fn`` captured once per key into
+    a CUDA graph of ``pool`` (``SHARED`` by default) and replayed (see the
+    module's docstring). ``fn`` must return tensors in tuples, lists or
+    dicts, must not read a device tensor on the host, and must not change
+    its inputs. ``captures`` and ``replays`` count this wrapper's."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, pool: Pool | None = None):
         self.fn = fn
         self.name = getattr(fn, "__qualname__", repr(fn))
+        self.pool = pool or SHARED
+        self.captures = 0
+        self.replays = 0
         self._graphs: dict = {}
         _caches.add(self)
 
@@ -205,8 +242,10 @@ class jit:
         entry.replay()
         for hook in entry.hooks:
             hook()
+        self.replays += 1
         with _lock:
             _counters.replays += 1
+            _fn_counters(self.name)["replays"] += 1
         return _unflatten(entry.out_spec, [t.clone() for t in entry.outputs])
 
     def _first_call(self, key, spec, leaves):
@@ -222,25 +261,34 @@ class jit:
                 return outs
             return run
 
-        result = _warm_up(run_on(leaves), device)
+        result = _warm_up(run_on(leaves), device, self.pool)
         spec_out = out_spec[0]
         inputs = [x.clone(memory_format=torch.contiguous_format) for x in leaves]
         hooks: list = []
-        t0 = time.perf_counter()
-        _local.hooks = hooks
-        try:
-            replay, outputs = _capture(run_on(inputs), device)
-        except Exception as e:
-            shapes = [tuple(t.shape) for t in leaves]
-            raise RuntimeError(f"CUDA-graph capture of {self.name} failed (tensor inputs "
-                               f"{shapes}): {type(e).__name__}: {e}") from e
-        finally:
-            _local.hooks = None
-        seconds = time.perf_counter() - t0
+        with _capture_lock:
+            t0 = time.perf_counter()
+            _local.hooks = hooks
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                replay, outputs = _capture(run_on(inputs), device, self.pool)
+            except Exception as e:
+                shapes = [tuple(t.shape) for t in leaves]
+                raise RuntimeError(f"CUDA-graph capture of {self.name} failed (tensor "
+                                   f"inputs {shapes}): {type(e).__name__}: {e}") from e
+            finally:
+                _local.hooks = None
+                if collecting:
+                    gc.enable()
+            seconds = time.perf_counter() - t0
+        self.captures += 1
         with _lock:
             _counters.captures += 1
             _counters.capture_s += seconds
-            _counters.log.append(dict(fn=self.name, seconds=seconds,
+            c = _fn_counters(self.name)
+            c["captures"] += 1
+            c["capture_s"] += seconds
+            _counters.log.append(dict(fn=self.name, pool=self.pool.name, seconds=seconds,
                                       shapes=[tuple(t.shape) for t in leaves]))
         self._graphs[key] = _Entry(replay, inputs, outputs, spec_out, hooks)
         return _unflatten(spec_out, result)
@@ -266,14 +314,24 @@ def _check_outputs(name, spec):
 
 # -- counters ------------------------------------------------------------------
 
-def pool_bytes() -> int:
-    """Bytes the shared pools hold on the card (segments of the caching
-    allocator owned by a pool of this module)."""
-    if not _pools:
-        return 0
-    ids = {_pool_id(p) for p in _pools.values()}
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if _pool_id(seg.get("segment_pool_id")) in ids)
+def _fn_counters(name: str) -> dict:
+    """A graphed function's counters (callers hold ``_lock``)."""
+    return _counters.by_fn.setdefault(name, dict(captures=0, capture_s=0.0, replays=0))
+
+
+def pool_bytes() -> dict:
+    """Bytes each live pool holds on the card (segments of the caching
+    allocator owned by the pool), by pool name."""
+    pools = [p for p in list(_all_pools) if p.handles()]
+    if not pools:
+        return {}
+    owner = {_pool_id(h): p.name for p in pools for h in p.handles()}
+    out = dict.fromkeys(sorted({p.name for p in pools}), 0)
+    for seg in torch.cuda.memory_snapshot():
+        name = owner.get(_pool_id(seg.get("segment_pool_id")))
+        if name is not None:
+            out[name] += seg["total_size"]
+    return out
 
 
 def _pool_id(handle):
@@ -285,12 +343,22 @@ def _pool_id(handle):
 
 def stats() -> dict:
     """Graphs held (by live ``jit`` wrappers), captures, capture seconds,
-    replays, the pools' bytes on the card, and the log of captures (each
-    one's function, tensor input shapes and seconds)."""
+    replays, the pools' bytes on the card (``pool_bytes`` in all,
+    ``pools`` by name), per graphed function (``by_fn``: captures,
+    capture seconds, replays, graphs held and its pool's name) and the
+    log of captures (each one's function, pool, tensor input shapes and
+    seconds)."""
     with _lock:
-        held = sum(len(c) for c in list(_caches))
-        out = dict(graphs_held=held, captures=_counters.captures,
+        caches = list(_caches)
+        by_fn = {k: dict(v, graphs_held=0, pool=None) for k, v in _counters.by_fn.items()}
+        for c in caches:
+            if c.name in by_fn:
+                by_fn[c.name]["graphs_held"] += len(c)
+                by_fn[c.name]["pool"] = c.pool.name
+        out = dict(graphs_held=sum(len(c) for c in caches), captures=_counters.captures,
                    capture_s=_counters.capture_s, replays=_counters.replays,
-                   log=list(_counters.log))
-    out["pool_bytes"] = pool_bytes()
+                   by_fn=by_fn, log=list(_counters.log))
+    pools = pool_bytes()
+    out["pools"] = pools
+    out["pool_bytes"] = sum(pools.values())
     return out

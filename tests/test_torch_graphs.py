@@ -28,70 +28,17 @@ body over a chunk of 4. These import no JAX:
 """
 
 import functools
-import os
-import traceback
 from collections import Counter
 
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
 
 from multicol_slam_tpu_torch.models import tracking
 from multicol_slam_tpu_torch.models.extractor import Features
 from multicol_slam_tpu_torch.utils import graphs
 
-PKG = os.path.join("multicol_slam_tpu_torch", "")
-KERNELS = os.path.join("multicol_slam_tpu_torch", "kernels", "")
-
-# Host reads the captured steps may make, as (file, function): each reads
-# no tensor derived from an input, so it is the same at every replay.
-ALLOWED = {
-    # log(scale_factor) of a float32 CPU scalar made from a Python float,
-    # taken on the host (no device copy)
-    ("models/tracking.py", "frustum_check"),
-}
-# Calls that read a tensor on the host, or whose output shape depends on
-# a tensor's values, or that make a tensor from host data.
-HOST_READS = {"item", "tolist", "__bool__", "__int__", "__float__", "__index__",
-              "numpy", "cpu", "nonzero", "argwhere", "masked_select", "unique",
-              "unique_consecutive", "tensor", "as_tensor"}
-
-
-class HostReads(TorchFunctionMode):
-    """Records (file, function, call) of every host read made inside the
-    port's package, the kernels' wrappers excepted: on the card their
-    CUDA path launches the kernel without a read (their CPU path runs the
-    plain version, which the card never runs)."""
-
-    def __init__(self):
-        super().__init__()
-        self.reads = Counter()
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = getattr(func, "__name__", str(func))
-        read = name in HOST_READS
-        if name == "to":
-            read = any(str(a) == "cpu" for a in list(args[1:]) + list(kwargs.values()))
-        if name in ("__getitem__", "__setitem__") and len(args) > 1:
-            idx = args[1] if isinstance(args[1], tuple) else (args[1],)
-            read = any(isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in idx)
-        if name == "repeat_interleave" and len(args) > 1:
-            read = isinstance(args[1], torch.Tensor)
-        if read:
-            self._record(name)
-        return func(*args, **kwargs)
-
-    def _record(self, name):
-        stack = traceback.extract_stack()[:-2]
-        if any(KERNELS in f.filename for f in stack):
-            return
-        for f in reversed(stack):      # the innermost named function
-            if PKG in f.filename and not f.name.startswith("<"):
-                rel = f.filename.split(PKG, 1)[1]
-                self.reads[(rel, f.name, name)] += 1
-                return
+from _graphutil import ALLOWED, HostReads, StandIn  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,37 +138,6 @@ def test_audit_sees_a_host_read():
 
 # -- the wrapper's bookkeeping through a capture stand-in ----------------------
 
-class StandIn:
-    """A capture stand-in for the CPU, for this file only. "capture" runs
-    the function once on the static buffers and keeps its outputs;
-    "replay" runs it again on the buffers and writes the results into
-    those outputs, as a graph's replay overwrites its static outputs.
-    While it replays, a launch report goes nowhere: a replay runs no
-    Python, and the graph repeats the reports recorded at its capture."""
-
-    def __init__(self, monkeypatch):
-        self.captures = 0
-        self.replays = 0
-        monkeypatch.setattr(graphs, "_warm_up", lambda run, device: run())
-        monkeypatch.setattr(graphs, "_capture", self.capture)
-
-    def capture(self, run, device):
-        outs = run()
-        self.captures += 1
-
-        def replay():
-            self.replays += 1
-            saved = getattr(graphs._local, "hooks", None)
-            graphs._local.hooks = []
-            try:
-                new = run()
-            finally:
-                graphs._local.hooks = saved
-            for o, n in zip(outs, new):
-                o.copy_(n)
-        return replay, outs
-
-
 LAUNCHES = Counter()
 
 
@@ -285,14 +201,51 @@ def test_launch_counts_add_up_per_replay(monkeypatch):
 
 
 def test_a_failed_capture_raises_naming_the_function(monkeypatch):
-    def broken(run, device):
+    def broken(run, device, pool):
         raise RuntimeError("operation not permitted when stream is capturing")
-    monkeypatch.setattr(graphs, "_warm_up", lambda run, device: run())
+    monkeypatch.setattr(graphs, "_warm_up", lambda run, device, pool: run())
     monkeypatch.setattr(graphs, "_capture", broken)
     f = graphs.jit(toy)
     with pytest.raises(RuntimeError, match="capture of toy failed"):
         f(torch.ones(4), toy_feats(8, 0), 2.0, 1)
     assert len(f) == 0 and not graphs.capturing()
+
+
+def test_captures_on_two_threads_run_one_at_a_time(monkeypatch):
+    """Two threads' first calls at once (the tracker and the async mapper):
+    their warm-ups may overlap, their captures do not, and the cyclic
+    garbage collector is off inside each capture and on again after."""
+    import gc
+    import threading
+    import time
+
+    stand = StandIn(monkeypatch)
+    inner, state = stand.capture, dict(now=0, most=0, gc_on=[])
+    lock = threading.Lock()
+
+    def slow_capture(run, device, pool):
+        with lock:
+            state["now"] += 1
+            state["most"] = max(state["most"], state["now"])
+        state["gc_on"].append(gc.isenabled())
+        time.sleep(0.2)
+        try:
+            return inner(run, device, pool)
+        finally:
+            with lock:
+                state["now"] -= 1
+
+    monkeypatch.setattr(graphs, "_capture", slow_capture)
+    threads = [threading.Thread(target=graphs.jit(toy), args=(torch.ones(4 * (i + 1)),
+                                                             toy_feats(8, i), 2.0, 1))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert stand.captures == 2 and state["most"] == 1
+    assert state["gc_on"] == [False, False] and gc.isenabled()
 
 
 def test_cpu_tensors_raise_without_a_stand_in():

@@ -54,6 +54,8 @@ SLICE_MODULES = [
     "multicol_slam_tpu_torch.utils.timing",
     "multicol_slam_tpu_torch.utils.trajectory",
     "multicol_slam_tpu_torch.utils.viz",
+    "multicol_slam_tpu_torch.utils.graphs",
+    "multicol_slam_tpu_torch.bench",
     "multicol_slam_tpu_torch.cli",
     "multicol_slam_tpu_torch.evaluate",
 ]

@@ -25,6 +25,7 @@ from multicol_slam_tpu.models import local_mapping as jlm
 from multicol_slam_tpu.models import system as jsys
 from multicol_slam_tpu_torch.models import local_mapping as tlm
 from multicol_slam_tpu_torch.models import matcher as tm
+from multicol_slam_tpu_torch.models import optimizer as topt
 from multicol_slam_tpu_torch.utils import convert
 
 import _torchutil as U
@@ -71,8 +72,43 @@ def _port_pass(carried):
 
 
 def test_process_keyframe_matches_jax(carried):
-    before, want = carried["before"], carried["after"]
     got, mapper = _port_pass(carried)
+    _assert_matches_jax(carried, got, mapper)
+
+
+def test_process_keyframe_through_graphs_matches_jax(carried, monkeypatch):
+    """The pass with the mapper's four units as graphs (``graphs.jit``
+    through the capture stand-in of ``tests/_graphutil.py``): a first pass
+    on a copy of the map captures each unit's keys, a second on another
+    copy replays them, and the second is held to the bars above."""
+    from _graphutil import StandIn
+    from multicol_slam_tpu_torch.utils import graphs
+
+    stand = StandIn(monkeypatch)
+    pool = graphs.Pool("mapper")
+    units = {name: graphs.jit(fn, pool) for name, fn in (
+        ("_triangulate", tlm.triangulation_batch), ("_cross_camera", tlm.cross_camera_batch),
+        ("_fuse", tlm.fuse_targets_batch), ("_bundle_adjust", topt.bundle_adjustment))}
+
+    def graphed_pass():
+        m = convert.map_from_numpy(carried["before"])
+        mapper = tlm.LocalMapper(U.full_torch_rig(), m, tm.MatchParams())
+        for name, unit in units.items():
+            setattr(mapper, name, unit)
+        mapper.recent_pts = list(carried["recent"])
+        mapper.process_keyframe(KF)
+        return m, mapper
+
+    graphed_pass()
+    captures = stand.captures
+    got, mapper = graphed_pass()
+    assert stand.captures == captures >= 4
+    assert all(u.replays >= 1 for u in units.values())
+    _assert_matches_jax(carried, got, mapper)
+
+
+def _assert_matches_jax(carried, got, mapper):
+    before, want = carried["before"], carried["after"]
     assert got._next_pt > before["_next_pt"]                  # it triangulated
     assert abs(got.n_points() - want.n_points()) <= 0.01 * want.n_points()
     same = (got.kf_pt[:2] == want.kf_pt[:2]).mean()

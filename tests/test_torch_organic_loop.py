@@ -104,8 +104,11 @@ def _jax_draws(key):
 def _replay(lc, lm, seen):
     """insert_keyframe on the query keyframe, recording DetectLoop's
     candidates and groups, CorrectLoop's pair and S12, and the arguments
-    and result of its fuse (the last ``fuse_targets_batch`` call)."""
-    detect, correct, fuse = lc._detect_loop, lc._correct_loop, lm.fuse_targets_batch
+    and result of its fuse (the last ``fuse_targets_batch`` call: the port's
+    mapper holds it as ``_fuse``, the JAX package's calls its module's)."""
+    owner, name = ((lc.fuser, "_fuse") if hasattr(lc.fuser, "_fuse")
+                   else (lm, "fuse_targets_batch"))
+    detect, correct, fuse = lc._detect_loop, lc._correct_loop, getattr(owner, name)
 
     def rec_fuse(*a, **k):
         out = fuse(*a, **k)
@@ -125,12 +128,12 @@ def _replay(lc, lm, seen):
         return correct(kf, loop_kf, S12)
 
     lc._detect_loop, lc._correct_loop = rec_detect, rec_correct
-    lm.fuse_targets_batch = rec_fuse
+    setattr(owner, name, rec_fuse)
     replaced = dict(lc.map.pt_replaced)
     try:
         seen["fired"] = lc.insert_keyframe(seen["query"])
     finally:
-        lm.fuse_targets_batch = fuse
+        setattr(owner, name, fuse)
     seen["merged"] = {a: b for a, b in lc.map.pt_replaced.items() if a not in replaced}
 
 
