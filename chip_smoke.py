@@ -63,10 +63,13 @@ Phases, each fatal on failure:
      neighbourhood support) near their own relative pose; the guided round
      adding inliers to a starved seed set; CorrectLoop on an injected
      drift, exact with the essential graph neutralized and improving every
-     keyframe with it, then once through the system's own loop closer
+     keyframe with it, then twice through the system's own loop closer
      (SearchAndFuse on); the 14-keyframe out-and-back chain; global
      bundle adjustment taking 3 cm of point noise at least halfway back.
-     The map is restored after each step;
+     The map is restored after each step. The loop closers' four units
+     (OptimizeSim3, the essential graph, fuse_candidates, the post-loop
+     global BA) are CUDA graphs, the system's in the mapper's pool;
+     MultiColSLAM.global_bundle_adjustment graphs in the shared pool;
   9. the system at the reference's own extractor options:
      MultiColSLAM(calib_dir=..., settings=SlamSettings(use_mdbrief=True,
      learn_masks=True, use_agast=True, fast_agast_type=2)), mdBRIEF with
@@ -234,6 +237,28 @@ Phases, each fatal on failure:
      small size. Phase 11 (b) prints the chunk scan's ms a frame (its
      scan and fetch, apart from the walk's keyframe passes), steady chunks
      apart from those that captured, beside phase 6's WORKING median.
+ 16. loop closing compiled: on the card LoopCloser runs OptimizeSim3,
+     the essential graph, fuse_candidates (guided SearchBySim3 and the
+     neighbourhood support, entry A inside the graph) and the post-loop
+     global BA as CUDA graphs, the system's in the mapper's pool and its
+     BA the mapper's BA graph; a later key of a graphed function captures
+     with no warm-up and returns one replay's outputs. Phases 8, 10 (seed
+     42, and every worker on its own run) and 16 record each unit's first
+     calls (LoopUnits); (a) each runs
+     again eagerly and through its graph (a replay) on copies of its
+     inputs: the recorded output (a warm-up's, a replay's or a later
+     key's first call's), the replay and the eager run identical in every
+     output; entry A at guided_sim3 and support counted at each replay and
+     equal to its plain version; (b) ms a call, graphed and eager, first
+     call and replays: ComputeSim3, CorrectLoop, the essential graph, the
+     global BA (the system's, and the closer's post-loop BA at
+     GBA_ITERS, its map-size key captured with no warm-up), beside the
+     bars first ComputeSim3 <= 2 s, later <= 0.5 s, the essential graph
+     <= 0.5 s (printed, not held); (c) phase 11 (a)'s slowest pass after
+     the first split into warm-up, capture, waiting for another thread's
+     capture, the interpreter lock and the rest, and the card's idle
+     share over that run (nvidia-smi's utilization.gpu every 100 ms).
+     Phase 10 prints each loop unit's captures and replays over its runs.
 
 Each of phases 6, 7, 8, 9, 10, 11 (a) and (b), 12 (a) and (c), 13 (a)
 and 14 (a) sets the launch counts to 0 just before it drives its path and
@@ -249,9 +274,10 @@ dense-gate entry). It computes each site's bound from the inputs (bytes
 over 3.35 TB/s, float operations over 67 TFLOP/s, popcounts over 16 per
 clock per SM at 1.98 GHz on 132 SMs) and its gate density. Phases 7 and 8
 also print the time of a relocalization, of the ComputeSim3 stage (its
-first, cold call and the warm ones, each split into its stages and the
-forward-mode Jacobians inside OptimizeSim3), of CorrectLoop, of the
-essential-graph optimization (its edge Jacobians apart) and of the
+first, cold call and the warm ones, each split into its host stages: the
+Sim3 RANSAC's draws, Horn and scoring, the OptimizeSim3 graph's calls,
+the guided and support rounds), of CorrectLoop, of the essential-graph
+optimization, of the written-out Jacobians eagerly apart, and of the
 vocabulary transform.
 
 Prints the wall seconds of every phase and of the whole script, the card
@@ -262,6 +288,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -463,9 +490,19 @@ SHARD_F64_TOL = 1e-8
 # iterations, and its bar that the LM lowers the cost below 0.8 of the start
 MAP_KF, MAP_PT, MAP_OBS, MAP_ITERS = 64, 8192, 8, 4
 MAP_MIN_GAIN = 0.8
-# the stages of a ComputeSim3 call timed apart (phase 8); "its_jacobians"
-# is the forward-mode Jacobian time inside optimize_sim3
-SIM3_STAGES = ("draws", "horn", "score", "optimize_sim3", "its_jacobians", "guided", "support")
+# the stages of a ComputeSim3 call timed apart (phase 8): the eager Sim3
+# RANSAC (draws, Horn, scoring), then the graphed units' calls
+# (optimize_sim3; guided and support each project landmarks through S12
+# and call the fuse_candidates graph)
+SIM3_STAGES = ("draws", "horn", "score", "optimize_sim3", "guided", "support")
+# phase 16: the loop closer's graphed units, and the copies kept of each
+# one's calls in each recorded phase (8, and 10's seed 42)
+LOOP_UNITS = ("optimize_sim3", "optimize_essential_graph", "fuse_candidates",
+              "bundle_adjustment")
+LOOP_RECORDS_PER_PHASE = 3
+# the call sites of the fuse_candidates graph: one graph serves both, so
+# a replay is named by its caller
+PROJECTED_SITES = ("guided_sim3", "support")
 ENTRY = {"radius": "hamming_nn_radius", "dense": "hamming_nn"}
 SOURCE = "multicol_slam_tpu_torch/csrc/hamming_nn.cu"
 REPLACES = "multicol_slam_tpu/ops/pallas/hamming_nn.py:146"
@@ -671,6 +708,7 @@ class SiteSpy:
 
     active = None
     first_args: dict = {}      # site -> its first inputs, over every spy
+    forced = None              # a site named by the caller (phase 16's reruns)
 
     def __init__(self, knn, matcher):
         self.knn, self.matcher = knn, matcher
@@ -681,7 +719,7 @@ class SiteSpy:
     def _call(self, kind, args):
         from multicol_slam_tpu_torch.utils import graphs
 
-        base = call_site(context=False)
+        base = SiteSpy.forced or call_site(context=False)
         with self.lock:
             if base == "init" and self.launches["init"] > self.launches["init_mutual"]:
                 base = "init_mutual"           # the swapped second launch
@@ -693,6 +731,12 @@ class SiteSpy:
         return getattr(self.knn, ENTRY[kind])(*args)
 
     def _count(self, base, masked):
+        if SiteSpy.forced:
+            base = SiteSpy.forced
+        elif base in PROJECTED_SITES:
+            # the fuse_candidates graph replayed under either caller
+            base = next((SITES[n] for n in _stack_names() if SITES.get(n) in PROJECTED_SITES),
+                        base)
         site = site_in_context(base)
         with self.lock:
             self.launches[site] += 1
@@ -744,6 +788,60 @@ def record_units(slam, phase):
         if not isinstance(unit, graphs.jit):
             fail(f"{phase}: the mapper's {name} is {unit!r}, not a CUDA graph on the card")
         setattr(slam.mapper, name, UnitRecorder(unit, name, phase))
+
+
+LOOP_RECORDS: list = []
+ASYNC_SPLIT: dict = {}       # phase 11 (a)'s pass split and idle share, for phase 16
+
+
+class LoopUnits:
+    """While entered, stands before every loop closer's graphed units
+    (``LoopCloser.unit``; phases 8, 10 and 16): each call is timed (host
+    ms ended by a sync of this thread's stream) by unit, and of the first
+    LOOP_RECORDS_PER_PHASE calls of each unit in ``phase`` copies of the
+    inputs and outputs are kept, with whether the call captured or
+    replayed and, for fuse_candidates, its caller's site. A unit the phase
+    replaced (the neutralized essential graph) is left alone."""
+
+    def __init__(self, phase):
+        self.phase = phase
+        self.ms = {u: [] for u in LOOP_UNITS}
+
+    def __enter__(self):
+        from multicol_slam_tpu_torch.models import loop_closing as lcm
+        from multicol_slam_tpu_torch.utils import graphs
+
+        self.owner, self.orig = lcm.LoopCloser, lcm.LoopCloser.unit
+
+        def unit(closer, name, _orig=self.orig):
+            g = _orig(closer, name)
+            inner = getattr(g, "unit", g)     # a UnitRecorder before the mapper's BA graph
+            return self._wrap(g, inner, name) if isinstance(inner, graphs.jit) else g
+
+        self.owner.unit = unit
+        return self
+
+    def __exit__(self, *exc):
+        self.owner.unit = self.orig
+
+    def _wrap(self, unit, g, name):
+        def call(*a, **k):
+            replays, captures = g.replays, g.captures
+            warm = not g._warmed           # a first key on the device runs a warm-up
+            site = (next((SITES[n] for n in _stack_names() if SITES.get(n) in PROJECTED_SITES),
+                         None) if name == "fuse_candidates" else None)
+            out, ms = timed(lambda: unit(*a, **k))
+            self.ms[name].append(ms)
+            if sum(r["unit"] == name and r["phase"] == self.phase
+                   for r in LOOP_RECORDS) < LOOP_RECORDS_PER_PHASE:
+                LOOP_RECORDS.append(dict(
+                    unit=name, unit_obj=g, phase=self.phase, site=site,
+                    inputs=clone_tree((a, k)), out=clone_tree(out), ms=ms,
+                    replayed=g.replays > replays, captured=g.captures > captures,
+                    warm_up=g.captures > captures and warm))
+                torch.cuda.current_stream().synchronize()
+            return out
+        return call
 
 
 def _stack_names():
@@ -851,13 +949,27 @@ def check_launches(knn, spy, sites, card, tag=""):
             fail(f"the kernel was not launched at call site {site}")
         # a graphed unit's first call (its warm-up) may have run in an
         # earlier phase, or under another context than the site's replays
-        base = site.replace(MAPPER, "").replace("loop_", "")
-        got_kind, args = (spy.args.get(site) or spy.args.get(base)
-                          or SiteSpy.first_args.get(site) or SiteSpy.first_args[base])
+        got_kind, args = first_inputs(site, spy.args, SiteSpy.first_args)
         if got_kind != site_kind(site):
             fail(f"call site {site} used {ENTRY[got_kind]}, want {ENTRY[site_kind(site)]}")
         entries.append(site_entry(knn, site + tag, got_kind, args, spy.launches[site], card))
     return entries
+
+
+def first_inputs(site, *recorded):
+    """(kind, args) of a site's first recorded inputs, from the first of
+    the ``recorded`` dicts that has them: the site's own; else those of
+    the site the graph's warm-up ran at, for a site whose launches were
+    all replays of a graph another site's call captured (the mapper's
+    units on its thread, CorrectLoop's fuse, the fuse_candidates graph
+    between guided SearchBySim3 and the support count)."""
+    base = site.replace(MAPPER, "").replace("loop_", "")
+    names = [site, base] + [s for s in PROJECTED_SITES if base in PROJECTED_SITES and s != base]
+    for name in names:
+        for d in recorded:
+            if name in d:
+                return d[name]
+    fail(f"no recorded inputs of call site {site}")
 
 
 def timed(fn):
@@ -872,10 +984,8 @@ def timed(fn):
 
 class StageClock:
     """Host ms (each call ended by a device sync) spent in named functions
-    while the clock is entered. A target is (owner, attribute, label) or,
-    for a function that returns the function to time (``jacfwd``),
-    (owner, attribute, label, True). A stage's time includes the stages
-    it calls."""
+    while the clock is entered. A target is (owner, attribute, label). A
+    stage's time includes the stages it calls."""
 
     def __init__(self, *targets):
         self.targets = targets
@@ -892,12 +1002,10 @@ class StageClock:
 
     def __enter__(self):
         self.saved = []
-        for owner, attr, label, *factory in self.targets:
+        for owner, attr, label in self.targets:
             f = getattr(owner, attr)
             self.saved.append((owner, attr, f, attr in vars(owner)))
-            g = (lambda *a, _f=f, _l=label, **k: self._timed(_f(*a, **k), _l)) if factory \
-                else self._timed(f, label)
-            setattr(owner, attr, g)
+            setattr(owner, attr, self._timed(f, label))
         return self
 
     def __exit__(self, *exc):
@@ -1116,17 +1224,25 @@ def map_state(m):
 
 def loop_phase(knn, card, slam):
     """Phase 8: loop closing on the card on the system's map, at the bars
-    of tests/test_loop_closing.py, the map restored after each step.
-    Returns the kernel JSON entries of its call sites."""
+    of tests/test_loop_closing.py, the map restored after each step; the
+    loop closers' units are CUDA graphs (LoopUnits records and times their
+    calls for phase 16). Returns (the kernel JSON entries of its call
+    sites, the times phase 16 prints)."""
     from multicol_slam_tpu_torch.models import loop_closing as lcm
-    from multicol_slam_tpu_torch.models import matcher, sim3_opt
+    from multicol_slam_tpu_torch.models import matcher
     from multicol_slam_tpu_torch.models import vocabulary as tv
     from multicol_slam_tpu_torch.models.keyframe_database import KeyFrameDatabase
     from multicol_slam_tpu_torch.ops import se3_np
     from multicol_slam_tpu_torch.ops import sim3 as s3
+    from multicol_slam_tpu_torch.utils import graphs
 
     m, lc = slam.map, slam.loop_closer
     dev = lc.dev
+    held = {u: getattr(lc.graphs.get(u), "unit", lc.graphs.get(u)) for u in LOOP_UNITS}
+    if not all(isinstance(g, graphs.jit) and g.pool is slam.mapper.pool for g in held.values()) \
+            or held["bundle_adjustment"] is not getattr(slam.mapper._bundle_adjust, "unit", None):
+        fail(f"loop: the system's closer holds {lc.graphs}, not CUDA graphs in the mapper's pool "
+             f"and the mapper's BA graph")
     state = map_state(m)
     restore = lambda: vars(m).update(copy.deepcopy(state))
     kfs = m.keyframe_ids().tolist()
@@ -1142,26 +1258,16 @@ def loop_phase(knn, card, slam):
     print(f"transform_words, {tuple(desc.shape)} descriptors, {lc.voc.n_words} words: device "
           f"{device_ms(voc_fn):.4f} ms, one call {cuda_ms(voc_fn):.4f} ms ({card})")
 
-    graph_ms, sim3_ms, correct_ms = [], [], []
+    sim3_ms, correct_ms = [], []
     sim3_stages = [(lcm, "sample_sim3_sets", "draws"), (lcm, "horn_alignment", "horn"),
-                   (sim3_opt, "sim3_chi2", "score"), (sim3_opt, "optimize_sim3", "optimize_sim3"),
-                   (sim3_opt, "jacfwd", "its_jacobians", True),
+                   (lcm.sim3_opt, "sim3_chi2", "score"),
                    (lc, "_guided_sim3_pairs", "guided"),
                    (lc, "_count_neighborhood_support", "support")]
-    graph_jac_ms = []
-    optimize_graph = sim3_opt.optimize_essential_graph
-
-    def timed_graph(*a, **k):
-        with StageClock((sim3_opt, "_edge_jacobians", "edge_jacobians")) as clock:
-            out, ms = timed(lambda: optimize_graph(*a, **k))
-        graph_ms.append(ms)
-        graph_jac_ms.append(clock.ms["edge_jacobians"])
-        return out
 
     reset_launches(knn)
-    sim3_opt.optimize_essential_graph = timed_graph
+    units = LoopUnits("phase 8")
     try:
-        with SiteSpy(knn, matcher) as spy:
+        with SiteSpy(knn, matcher) as spy, units:
             # SearchByBoW between the first two keyframes
             pairs = lc._matched_point_pairs(kf1, kf2)
             same = sum(p[0] == p[1] for p in pairs)
@@ -1171,19 +1277,15 @@ def loop_phase(knn, card, slam):
                 fail("SearchByBoW between the first two keyframes: want >= "
                      f"{lcm.MIN_BOW_MATCHES} pairs, > 60% the same landmark")
 
-            # the process's first forward-mode Jacobian on the card, on a
-            # tiny function apart from the Sim3 code, cold and then warm
-            v = torch.linspace(0.1, 0.7, 7, device=dev)
-            tiny = lambda: torch.func.jacfwd(lambda x: torch.sin(x * x).sum(0, keepdim=True))(v)
-            (_, cold), (_, warm) = timed(tiny), timed(tiny)
-            print(f"loop: first torch.func.jacfwd on the card, 7 -> 1: cold {cold:.3f} ms, "
-                  f"warm {warm:.3f} ms ({card})")
             # ComputeSim3 between them: near their own relative pose. The
-            # first call is the process's first use of the Sim3 code; each
-            # call is split into its stages
+            # first call is the process's first use of the Sim3 code and
+            # captures its units' graphs; each call is split into its
+            # stages (a graph cannot be split: OptimizeSim3 is one stage)
             for i in range(3):
+                n_opt = len(units.ms["optimize_sim3"])
                 with StageClock(*sim3_stages) as clock:
                     S12, ms = timed(lambda: lc._compute_sim3(kf1, kf2, pairs))
+                clock.ms["optimize_sim3"] = sum(units.ms["optimize_sim3"][n_opt:])
                 sim3_ms.append(ms)
                 print(f"loop: _compute_sim3 call {i + 1}{' (cold)' if i == 0 else ''}: "
                       f"{ms:.3f} ms; stages ms: {clock.line(SIM3_STAGES)} ({card})")
@@ -1201,10 +1303,13 @@ def loop_phase(knn, card, slam):
 
             # CorrectLoop on an injected drift, with the essential graph
             # neutralized (exact) and with it (every keyframe improves),
-            # through a closer built as the JAX tests build theirs
+            # through a closer built as the JAX tests build theirs (its
+            # graphs in a pool of its own)
             closer = lcm.LoopCloser(slam.rig, m, lc.voc, KeyFrameDatabase(), slam._loop_params,
                                     scale_factor=lc.scale_factor, n_levels=lc.n_levels)
-            sim3_opt.optimize_essential_graph = lambda logs, graph, iters=20, fix_scale=True: logs
+            graph_unit = closer.graphs["optimize_essential_graph"]
+            closer.graphs["optimize_essential_graph"] = \
+                lambda logs, graph, iters=20, fix_scale=True: logs
             eb, ea, pb, pa = drift_and_correct(closer, m, kfs, sim3_dev)
             restore()
             print(f"loop: CorrectLoop, graph neutralized: pose error after "
@@ -1212,28 +1317,60 @@ def loop_phase(knn, card, slam):
                   f"{pa:.2e} (before {pb:.4f})")
             if max(ea.values()) >= 1e-4 or pa >= 1e-3:
                 fail("CorrectLoop did not restore the drifted map exactly")
-            sim3_opt.optimize_essential_graph = timed_graph
+            closer.graphs["optimize_essential_graph"] = graph_unit
             eb, ea, pb, pa = drift_and_correct(closer, m, kfs, sim3_dev)
             restore()
             print("loop: CorrectLoop with the graph, pose error before/after per keyframe "
                   + ", ".join(f"{k}: {eb[k]:.4f}/{ea[k]:.4f}" for k in kfs[1:]))
             if any(ea[k] >= eb[k] for k in kfs[1:]) or ea[kfs[-1]] >= 0.95 * eb[kfs[-1]]:
                 fail("CorrectLoop with the essential graph did not improve every keyframe")
-            # once through the system's own closer: SearchAndFuse on
-            _, _, _, _ = drift_and_correct(lc, m, kfs, sim3_dev, correct_ms)
-            restore()
+            # twice through the system's own closer: SearchAndFuse on, the
+            # second call at the first's keys
+            for _ in range(2):
+                drift_and_correct(lc, m, kfs, sim3_dev, correct_ms)
+                restore()
 
             chain_graph(slam.rig, lc, sim3_dev)
 
-            global_ba_repairs(slam, m, restore, card)
+            global_ms = global_ba_repairs(slam, m, restore, card)
     finally:
-        sim3_opt.optimize_essential_graph = optimize_graph
         restore()
+    graph_ms = units.ms["optimize_essential_graph"]
     print(f"loop: _compute_sim3 ms median {statistics.median(sim3_ms):.3f}, _correct_loop ms "
-          f"{[round(x, 3) for x in correct_ms]}, optimize_essential_graph ms "
-          f"{[round(x, 3) for x in graph_ms]}, of which edge Jacobians "
-          f"{[round(x, 3) for x in graph_jac_ms]} ({card})")
-    return check_launches(knn, spy, LOOP_SITES, card)
+          f"{[round(x, 3) for x in correct_ms]}, optimize_essential_graph ms (20 iterations, "
+          f"graphed) {[round(x, 3) for x in graph_ms]} ({card})")
+    jac = written_out_jacobian_ms(card)
+    times = dict(sim3=sim3_ms, correct=correct_ms, graph=graph_ms, global_ba=global_ms,
+                 units=units.ms, jacobians=jac)
+    return check_launches(knn, spy, LOOP_SITES, card), times
+
+
+def written_out_jacobian_ms(card):
+    """The written-out linearizations (residuals and Jacobians) timed
+    eagerly, apart from the graphs that hold them, on phase 8's first
+    recorded inputs: OptimizeSim3's at its initial iterate, and the
+    essential graph's edges at its initial logs. Returns {name: ms a
+    call}."""
+    from multicol_slam_tpu_torch.models import sim3_opt
+
+    out = {}
+    for r in LOOP_RECORDS:
+        if r["phase"] != "phase 8":
+            continue
+        a, _ = r["inputs"]
+        if r["unit"] == "optimize_sim3" and "sim3" not in out:
+            rig, S0, obs = a
+            v7 = torch.zeros(7, dtype=obs.X1.dtype, device=obs.X1.device)
+            out["sim3"] = cuda_ms(lambda: sim3_opt.sim3_linearize(rig, v7, S0, obs), reps=10)
+            shape = tuple(obs.X1.shape)
+        if r["unit"] == "optimize_essential_graph" and "edges" not in out:
+            logs, g = a
+            ei, ej, M = g.edge_i.long(), g.edge_j.long(), sim3_opt.sim3_exp(g.meas)
+            out["edges"] = cuda_ms(lambda: sim3_opt.edge_linearize(logs, ei, ej, M), reps=10)
+            edges = tuple(g.meas.shape)
+    print(f"loop: written-out Jacobians, eager, ms a call: OptimizeSim3's over {shape} pairs "
+          f"{out['sim3']:.3f}, the essential graph's {edges} edges {out['edges']:.3f} ({card})")
+    return out
 
 
 def guided_round(lc, rig, kf1, kf2, pairs, T12):
@@ -1249,8 +1386,8 @@ def guided_round(lc, rig, kf1, kf2, pairs, T12):
                                  lc._body_frame_points(kf2, [p[1] for p in ps]))
 
     seed = pairs[::3]
-    obs = obs_of(seed)
-    S0 = s3.horn_alignment(obs.X1, obs.X2, fix_scale=lc.fix_scale)
+    obs = obs_of(seed)                    # padded: the first len(seed) rows are the pairs
+    S0 = s3.horn_alignment(obs.X1[:len(seed)], obs.X2[:len(seed)], fix_scale=lc.fix_scale)
     S12, _, n_in = sim3_opt.optimize_sim3(rig, S0, obs, iters=10, fix_scale=lc.fix_scale)
     extra = lc._guided_sim3_pairs(kf1, kf2, S12, {(a, b) for a, b, *_ in seed})
     own = all((kf2, c2, s2) in lc.map.pt_obs[p2] for _, p2, _, _, c2, s2 in extra)
@@ -1258,7 +1395,7 @@ def guided_round(lc, rig, kf1, kf2, pairs, T12):
     S_true = s3.Sim3(torch.ones((), device=dev),
                      torch.tensor(T12[:3, :3], dtype=torch.float32, device=dev),
                      torch.tensor(T12[:3, 3], dtype=torch.float32, device=dev))
-    frac_rev = float((sim3_opt.sim3_chi2(rig, S_true, obs_of(extra))[1] <= 9.21)
+    frac_rev = float((sim3_opt.sim3_chi2(rig, S_true, obs_of(extra))[1][:len(extra)] <= 9.21)
                      .float().mean()) if extra else 0.0
     _, _, n_in2 = sim3_opt.optimize_sim3(rig, S12, obs_of(seed + extra), iters=10,
                                          fix_scale=lc.fix_scale)
@@ -1274,9 +1411,11 @@ def global_ba_repairs(slam, m, restore, card):
     """tests/test_loop_closing.py's global-BA bar on the system's map (off
     the default path: the loop closer runs none after a loop): the map
     first brought to the global-BA optimum, every point then moved 3 cm,
-    and ``MultiColSLAM.global_bundle_adjustment`` must take the points at
-    least halfway back, keyframe 0 unmoved."""
-    slam.global_bundle_adjustment(iters=10)
+    and ``MultiColSLAM.global_bundle_adjustment`` (a graph in the shared
+    pool: the first call captures, the second replays) must take the
+    points at least halfway back, keyframe 0 unmoved. Returns both calls'
+    ms."""
+    _, first_ms = timed(lambda: slam.global_bundle_adjustment(iters=10))
     kf0 = int(m.keyframe_ids()[0])
     pose0 = m.kf_pose[kf0].copy()
     pts = np.nonzero(m.pt_valid)[0]
@@ -1292,6 +1431,7 @@ def global_ba_repairs(slam, m, restore, card):
           f"mean error after {err:.2e} m, chi2 {cost:.3f}, {ms:.3f} ms ({card})")
     if not np.isfinite(cost) or err >= 0.015 or moved:
         fail("global bundle adjustment did not repair the perturbed points")
+    return [first_ms, ms]
 
 
 def drift_and_correct(closer, m, kfs, sim3_dev, correct_ms=None):
@@ -1521,23 +1661,37 @@ def mdbrief_phase(dev, knn, card, frames, gt):
     return entries
 
 
-def organic_run(dev, knn, seed, on_frame=None):
+def loop_unit_counts():
+    """{loop unit: [captures, replays]} of the process's graphs so far."""
+    from multicol_slam_tpu_torch.utils import graphs
+    by_fn = graphs.stats()["by_fn"]
+    return {u: [by_fn.get(u, {}).get("captures", 0), by_fn.get(u, {}).get("replays", 0)]
+            for u in LOOP_UNITS}
+
+
+def organic_run(dev, knn, seed, on_frame=None, record=False):
     """One run of the organic loop episode (multicol_slam_tpu_torch/utils/
     episode.py) on the card at ``seed``, the launch counts set to 0 just
     before it: every call site's launches add up to the wrappers' counts,
     every site it launched equals its plain version on its first inputs,
     and the run launched ORGANIC_SITES, and LOOP_SITES when it fired a wide
-    loop. ``on_frame(slam, t)`` runs after frame t. Returns (system,
-    episode.summary's outcome, the SiteSpy)."""
+    loop. ``on_frame(slam, t)`` runs after frame t; with ``record`` the
+    loop closer's unit calls are recorded for phase 16. Returns (system,
+    episode.summary's outcome with the loop units' captures and replays
+    over the run, the SiteSpy)."""
     from multicol_slam_tpu_torch.models import matcher
     from multicol_slam_tpu_torch.utils import episode
 
     slam, gt, frame, seed_closer, sync = episode.port_system(dev, seed)
+    before = loop_unit_counts()
     reset_launches(knn)
-    with SiteSpy(knn, matcher) as spy:
+    with SiteSpy(knn, matcher) as spy, \
+            (LoopUnits("phase 10") if record else contextlib.nullcontext()):
         res = episode.run_episode(slam, frame, gt, seed_closer=seed_closer, sync=sync,
                                   log=lambda *a, **k: None,
                                   on_frame=on_frame and (lambda t: on_frame(slam, t)))
+    res["loop_units"] = {u: [a - b for a, b in zip(c, before[u])]
+                         for u, c in loop_unit_counts().items()}
     launches = {k: getattr(knn, ENTRY[k]).launches for k in ENTRY}
     for kind in ENTRY:
         by_site = sum(n for s, n in spy.launches.items() if site_kind(s) == kind)
@@ -1556,13 +1710,18 @@ def organic_run(dev, knn, seed, on_frame=None):
 
 
 def organic_worker(seed: int, out_dir: str) -> None:
-    """A worker of phase 10: one run at ``seed``; writes its outcome and
-    launches (JSON) and each site's first inputs (torch) to ``out_dir``."""
+    """A worker of phase 10: one run at ``seed``, its loop closer's unit
+    calls held to their eager selves (phase 16 (a)); writes its outcome,
+    that check and the launches (JSON) and each site's first inputs
+    (torch) to ``out_dir``."""
     from multicol_slam_tpu_torch.kernels import hamming_nn as knn
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    _, res, spy = organic_run(dev, knn, seed)
+    _, res, spy = organic_run(dev, knn, seed, record=True)
+    # phase 16 (a) on this run's loop-unit calls, in this process
+    _, kinds = check_loop_records(LOOP_RECORDS, f"organic seed {seed}")
+    res["loop_graph_check"] = {f"{u}: {kd}": n for (u, kd), n in kinds.items()}
     cpu = lambda a: a.cpu() if torch.is_tensor(a) else a
     torch.save({s: (k, [cpu(a) for a in args]) for s, (k, args) in spy.args.items()},
                os.path.join(out_dir, f"args{seed}.pt"))
@@ -1614,7 +1773,7 @@ def organic_phase(dev, knn, card):
                 fail(f"organic resume: the reloaded map differs from the saved one: {differ}")
 
         seed0 = ORGANIC_SEEDS[0]
-        _, res0, spy0 = organic_run(dev, knn, seed0, on_frame=checkpoint_at)
+        _, res0, spy0 = organic_run(dev, knn, seed0, on_frame=checkpoint_at, record=True)
         runs = {seed0: (res0, dict(spy0.launches), spy0.args)}
         for kind, xs in res0["frame_ms"].items():
             print(f"organic frame ms, seed {seed0} alone, {kind}: {percentiles(xs)} ({card})")
@@ -1674,6 +1833,12 @@ def organic_phase(dev, knn, card):
               f"{[round(x, 3) for x in res['sim3_ms']]}; CorrectLoop "
               f"{len(res['correct_ms'])} calls, ms {[round(x, 3) for x in res['correct_ms']]}"
               f"{' (alone)' if seed == seed0 else ' (beside the other workers)'} ({card})")
+    units = {u: [sum(r[0]["loop_units"][u][i] for r in runs.values()) for i in (0, 1)]
+             for u in LOOP_UNITS}
+    print(f"organic: the loop units' graphs over the {len(runs)} runs, [captures, replays] "
+          f"{units}; by run {({s: r[0]['loop_units'] for s, r in runs.items()})}; a unit "
+          f"capturing more often than it replays: "
+          f"{[u for u, (c, r) in units.items() if c > r] or 'none'} ({card})")
     repaired = [s for s, r in runs.items() if r[0]["repaired"]]
     ok = [s for s, r in runs.items() if r[0]["ok"]]
     print(f"organic: {len(repaired)} of {len(runs)} runs repaired a wide loop {repaired} "
@@ -1687,17 +1852,16 @@ def organic_phase(dev, knn, card):
     for _, launches, _ in runs.values():
         total.update(launches)
     print(f"organic launches by call site, summed over the runs: {dict(total)}")
+    checks = {s: r[0].get("loop_graph_check") for s, r in runs.items() if s != seed0}
+    print(f"organic: loop-unit calls held to their eager selves in the workers (phase 16 "
+          f"(a)), identical: {checks}")
     sites = ORGANIC_SITES + LOOP_SITES + tuple(
         s for s in RELOC_SITES + ("window_search",) if total[s])
     entries = []
     for site in sites:
-        # a site whose launches were all replays of a graph another site's
-        # call captured (CorrectLoop's fuse) takes that site's inputs
-        base = site.replace("loop_", "")
-        kind, args = next(r[2].get(site) or r[2][base] for r in runs.values()
-                          if site in r[2] or base in r[2])
+        kind, args = first_inputs(site, *(r[2] for r in runs.values()))
         entries.append(site_entry(knn, site + "_organic", kind, args, total[site], card))
-    return entries
+    return entries, checks
 
 
 def async_phase(dev, knn, card, frames, gt, ref):
@@ -1732,10 +1896,12 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
     from multicol_slam_tpu_torch.utils import config_io, graphs
     from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
 
+    from multicol_slam_tpu_torch.bench import Utilization, pass_split
+
     slam = MultiColSLAM(calib_dir=config_io.SYNTH_RIG_DIR, async_mapping=True)
     record_units(slam, "phase 11 (a)")
     mapper_thread, stream = slam._mapper_thread, slam._mapper_stream.cuda_stream
-    passes, count = [], Counter()
+    passes, count, split = [], Counter(), []
     process, ba = slam.mapper.process_keyframe, slam.mapper._local_bundle_adjustment
     refuse = slam.tracker.interrupt_ba_fn
 
@@ -1749,7 +1915,15 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
         if threading.current_thread() is mapper_thread and not held.is_set():
             held.set()
             go.wait(timeout=60)
-        return process(kf)
+        # the pass's split (after the hold): bench.pass_split's parts
+        g0, c0, t0 = graphs.thread_seconds(), time.thread_time(), time.perf_counter()
+        try:
+            return process(kf)
+        finally:
+            wall, cpu, g1 = time.perf_counter() - t0, time.thread_time() - c0, \
+                graphs.thread_seconds()
+            split.append(dict(thread=threading.current_thread().name, wall=wall, cpu=cpu,
+                              **{k: g1[k] - g0[k] for k in g1}))
 
     def recorded_ba(kf):
         count["ba"] += 1
@@ -1784,7 +1958,7 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
     graphs._capture = capture_noted
     kinds, times, init_frame, returned = [], [], None, {}
     reset_launches(knn)
-    with SiteSpy(knn, matcher) as spy:
+    with SiteSpy(knn, matcher) as spy, Utilization(dev) as util:
         try:
             for i in range(SYS_FRAMES):
                 if held.is_set() and not go.is_set():
@@ -1819,6 +1993,11 @@ def async_mapping_run(dev, knn, card, frames, gt, ref):
           f"{count['captures']} on the tracker's thread, {count['captures_in_pass']} of them while "
           f"a mapping pass ran, {count['mapper_launches_in_capture']} mapper launches during "
           f"the captures")
+    ASYNC_SPLIT.update(split=pass_split(split), idle=None if util.busy is None else 1 - util.busy,
+                       samples=util.samples, passes_ms=[round(p["wall"] * 1e3, 3) for p in split])
+    print(f"async: the slowest pass after the first, split (ms) {ASYNC_SPLIT['split']}; the "
+          f"card's idle share over the run {ASYNC_SPLIT['idle']} ({util.samples} samples of "
+          f"nvidia-smi utilization.gpu) ({card})")
     if init_frame is None or init_frame >= SYS_INIT_BY:
         fail(f"async: the system did not initialize within {SYS_INIT_BY} frames")
     if not count["captures_in_pass"]:
@@ -2985,6 +3164,155 @@ def mapping_phase(dev, knn, card, frames):
     return entries
 
 
+def check_loop_records(records, tag):
+    """Every recorded loop-unit call (LoopUnits) again eagerly (the unit's
+    function) and through its graph (a replay: the key was captured) on
+    copies of its inputs: the recorded output, the replay and the eager
+    run identical in every output. A fuse_candidates call's launches are
+    named by its recorded site. Returns ({unit: {"eager", "graphed": ms
+    a call}}, Counter of (unit, what the recorded call was))."""
+    ms = {u: {"eager": [], "graphed": []} for u in LOOP_UNITS}
+    kinds = Counter()
+    for i, r in enumerate(records):
+        a, k = r["inputs"]
+        unit = r["unit_obj"]
+        SiteSpy.forced = r["site"]
+        try:
+            want, t_e = timed(lambda: unit.fn(*a, **k))
+            replays, captures = unit.replays, unit.captures
+            got, t_g = timed(lambda: unit(*a, **k))
+        finally:
+            SiteSpy.forced = None
+        if unit.captures != captures or unit.replays != replays + 1:
+            fail(f"{tag}: {r['unit']} call {i} did not replay its graph")
+        ms[r["unit"]]["eager"].append(t_e)
+        ms[r["unit"]]["graphed"].append(t_g)
+        kind = ("a warm-up" if r["warm_up"] else "a later key's first call, no warm-up"
+                if r["captured"] else "a replay")
+        kinds[(r["unit"], kind)] += 1
+        tree_err(got, want, f"{tag}: {r['unit']} ({r['phase']}) replay against eager")
+        tree_err(r["out"], want, f"{tag}: {r['unit']} ({r['phase']}, {kind}) recorded "
+                                 f"against eager")
+    return ms, kinds
+
+
+def loop_graph_phase(dev, knn, card, slam, times, organic_checks):
+    """Phase 16: loop closing compiled. (b) first: the system's closer's
+    post-loop global BA on phase 6's map, twice (its graph is the mapper's
+    BA graph: the map-size key captures with no warm-up, the wrapper having
+    warmed at the bootstrap; then a replay), its units recorded; ComputeSim3
+    and CorrectLoop through the system's closer with its graphs set aside
+    (the units eager on the card) against phase 8's graphed calls. (a)
+    every recorded call of the four loop units (phases 8, 10's seed 42 and
+    16) runs again eagerly (the unit's function) and through its graph (a
+    replay: the key was captured) on copies of its inputs: the recorded
+    output (a warm-up's, a replay's, or a later key's first call's, which
+    ran no warm-up), the replay and the eager run identical in every
+    output (check_loop_records; phase 10's workers ran it on their own
+    runs' calls, ``organic_checks``); entry A at fuse_candidates counted
+    at each replay and held to its plain version. (c) phase 11 (a)'s pass
+    split and the card's idle share. Returns the kernel JSON entries of
+    its sites."""
+    from multicol_slam_tpu_torch.models import matcher
+    from multicol_slam_tpu_torch.models.global_ba import run_global_ba
+    from multicol_slam_tpu_torch.ops import sim3 as s3
+
+    m, lc = slam.map, slam.loop_closer
+    state = map_state(m)
+    restore = lambda: vars(m).update(copy.deepcopy(state))
+    kfs = m.keyframe_ids().tolist()
+    kf1, kf2 = kfs[0], kfs[1]
+    sim3_dev = lambda T: s3.sim3_from_se3(torch.tensor(T, dtype=torch.float32, device=dev))
+    units = LoopUnits("phase 16")
+    global_ms, global_eager = [], []
+    try:
+        with units:
+            # the post-loop BA, off by default (0 iterations): run here
+            # with GBA_ITERS, as a user sets it
+            lc.global_ba_iters = GBA_ITERS
+            for _ in range(2):
+                _, ms = timed(lambda: lc._global_ba(kfs[0]))
+                global_ms.append(ms)
+                restore()
+        for _ in range(2):
+            _, ms = timed(lambda: run_global_ba(slam.rig, m, [kfs[0]], lc.scale_factor,
+                                                iters=GBA_ITERS))
+            global_eager.append(ms)
+            restore()
+        # ComputeSim3 and CorrectLoop with the units eager on the card
+        saved, lc.graphs = lc.graphs, {}
+        sim3_eager, correct_eager = [], []
+        try:
+            pairs = lc._matched_point_pairs(kf1, kf2)
+            for _ in range(3):
+                _, ms = timed(lambda: lc._compute_sim3(kf1, kf2, pairs))
+                sim3_eager.append(ms)
+            for _ in range(2):
+                drift_and_correct(lc, m, kfs, sim3_dev, correct_eager)
+                restore()
+        finally:
+            lc.graphs = saved
+    finally:
+        lc.global_ba_iters = 0
+        restore()
+
+    # (a) every recorded call graphed against eager
+    by_unit = Counter(r["unit"] for r in LOOP_RECORDS)
+    missing = [u for u in LOOP_UNITS if not by_unit[u]]
+    if missing:
+        fail(f"phase 16: no recorded call of {missing}")
+    if not any(r["captured"] and not r["warm_up"] for r in LOOP_RECORDS):
+        fail("phase 16: no recorded call of a later key captured with no warm-up")
+    reset_launches(knn)
+    with SiteSpy(knn, matcher) as spy:
+        ms, kinds = check_loop_records(LOOP_RECORDS, "phase 16")
+    sites = sorted({r["site"] for r in LOOP_RECORDS if r["unit"] == "fuse_candidates"})
+    for site in sites:
+        want_n = 2 * sum(r["site"] == site for r in LOOP_RECORDS)
+        if spy.launches[site] != want_n:
+            fail(f"phase 16: {spy.launches[site]} launches at {site}, want {want_n}")
+    entries = check_launches(knn, spy, sites, card, tag="_loop_graph")
+    for u in LOOP_UNITS:
+        print(f"phase 16 (a): {u}: {by_unit[u]} recorded calls "
+              f"({ {kd: n for (uu, kd), n in kinds.items() if uu == u} }), each recorded output, "
+              f"its replay now and its eager run identical; ms a call eager "
+              f"{percentiles(ms[u]['eager'])}, graphed (a replay) "
+              f"{percentiles(ms[u]['graphed'])} ({card})")
+
+    fired = {s: c for s, c in organic_checks.items() if c}
+    print(f"phase 16 (a): phase 10's workers held their loop-unit calls to their eager "
+          f"selves, identical, at the seeds that fired a loop: {fired}")
+    if not fired and not any(r["phase"] == "phase 10" for r in LOOP_RECORDS):
+        fail("phase 16: no organic run recorded a loop-unit call")
+    # (b) the times
+    first, later = times["sim3"][0], times["sim3"][1:]
+    graph = times["graph"]
+    print(f"phase 16 (b): ComputeSim3 ms, graphed: first {first:.3f}, later {later} (phase 8); "
+          f"eager on the card: {[round(x, 3) for x in sim3_eager]} ({card})")
+    print(f"phase 16 (b): CorrectLoop ms (SearchAndFuse, the essential graph), graphed "
+          f"{[round(x, 3) for x in times['correct']]} (phase 8: the first captures); eager "
+          f"{[round(x, 3) for x in correct_eager]} ({card})")
+    print(f"phase 16 (b): the essential graph (20 iterations) ms, graphed {graph} (phase 8); "
+          f"eager {percentiles(ms['optimize_essential_graph']['eager'])}; OptimizeSim3 "
+          f"eager {percentiles(ms['optimize_sim3']['eager'])}, graphed "
+          f"{percentiles(ms['optimize_sim3']['graphed'])}; written-out Jacobians eager "
+          f"{times['jacobians']} ({card})")
+    print(f"phase 16 (b): global BA ({GBA_ITERS} iterations) ms: the system's "
+          f"global_bundle_adjustment graphed {times['global_ba']} (phase 8, first captures), "
+          f"the closer's post-loop BA graphed {[round(x, 3) for x in global_ms]} (first "
+          f"captures with no warm-up), eager {[round(x, 3) for x in global_eager]} ({card})")
+    bars = dict(first_compute_sim3=(first, 2000.0), later_compute_sim3=(max(later), 500.0),
+                essential_graph=(max(graph), 500.0))
+    print(f"phase 16 (b): against the loop-closing bars (ms, bar): "
+          f"{ {k: (round(v, 3), b, 'met' if v <= b else 'NOT met') for k, (v, b) in bars.items()} } "
+          f"({card})")
+    # (c) the async mapper's pass split
+    print(f"phase 16 (c): phase 11 (a)'s slowest pass after the first, split (ms) "
+          f"{ASYNC_SPLIT.get('split')}; passes ms {ASYNC_SPLIT.get('passes_ms')}; the card's "
+          f"idle share over the run {ASYNC_SPLIT.get('idle')} ({card})")
+    return entries
+
+
 def reloc_error(m, poses, gt, at, i):
     """(m, degrees): frame i's returned pose (poses: frame -> (4, 4) or
     None) against ground truth, both relative to frame at - 1: its pose in
@@ -3226,7 +3554,7 @@ def main() -> None:
     mark("7 relocalization")
 
     # -- 8. loop closing -----------------------------------------------------
-    loop_entries = loop_phase(knn, card, slam)
+    loop_entries, loop_times = loop_phase(knn, card, slam)
     mark("8 loop closing")
 
     # -- 9. the mdBRIEF system -------------------------------------------------
@@ -3235,7 +3563,7 @@ def main() -> None:
     mark("9 mdBRIEF system")
 
     # -- 10. the organic loop closure ------------------------------------------
-    organic_entries = organic_phase(dev, knn, card)
+    organic_entries, organic_checks = organic_phase(dev, knn, card)
     graph_line("phase 10")
     mark("10 organic loop")
 
@@ -3277,11 +3605,18 @@ def main() -> None:
     graph_line("phase 15")
     mark("15 mapping graphs")
 
+    # -- 16. loop closing's graphed units ----------------------------------------------
+    loop_graph_entries = loop_graph_phase(dev, knn, card, slam, loop_times, organic_checks)
+    LOOP_RECORDS.clear()
+    graph_line("phase 16")
+    mark("16 loop graphs")
+
     print(f"wall s by phase {phase_s}, whole script {time.perf_counter() - t_script:.3f} "
           f"({card})")
     print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries
                       + md_entries + organic_entries + async_entries + ring_entries
-                      + dyn_entries + room_entries + graph_entries + mapping_entries}))
+                      + dyn_entries + room_entries + graph_entries + mapping_entries
+                      + loop_graph_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,6 +60,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 
@@ -133,6 +134,57 @@ def graphed(fn, dev):
     and the mapper's rule)."""
     from .utils import graphs
     return graphs.jit(fn) if dev.type == "cuda" else fn
+
+
+class Utilization:
+    """The card's busy share over a ``with`` block: ``nvidia-smi``'s
+    ``utilization.gpu`` (the share of its sample period in which a kernel
+    ran) read every 100 ms by a subprocess, averaged. ``busy`` is None on
+    the CPU or without a sample."""
+
+    def __init__(self, dev):
+        self.dev, self.proc, self.busy, self.samples = dev, None, None, 0
+
+    def __enter__(self):
+        if self.dev.type == "cuda":
+            idx = self.dev.index if self.dev.index is not None else torch.cuda.current_device()
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "-i", str(idx), "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            return
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        xs = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+        self.samples = len(xs)
+        self.busy = sum(xs) / (100.0 * len(xs)) if xs else None
+
+
+def pass_split(passes) -> dict | None:
+    """The slowest mapping pass after the first, its wall ms split into
+    five parts that add up to it: ``warm_up`` and ``capture`` (the first
+    calls of graphed units, ``graphs.thread_seconds``), ``capture_wait``
+    (waiting for another thread's capture), ``interpreter_lock`` (the rest
+    of the thread's time off the CPU: the gap between its wall and CPU
+    time, waiting for Python's interpreter lock) and ``rest`` (its CPU
+    time outside warm-ups and captures). ``*_off_cpu``: the time off the
+    CPU inside warm-ups and captures."""
+    if len(passes) < 2:
+        return None
+    p = max(passes[1:], key=lambda q: q["wall"])
+    ms = {k: v * 1e3 for k, v in p.items() if isinstance(v, float)}
+    warm_off = ms["warm_up"] - ms["warm_up_cpu"]
+    cap_off = ms["capture"] - ms["capture_cpu"]
+    lock = ms["wall"] - ms["cpu"] - ms["capture_wait"] - warm_off - cap_off
+    return dict(pass_index=passes.index(p), thread=p["thread"], wall=ms["wall"],
+                cpu=ms["cpu"], warm_up=ms["warm_up"], capture=ms["capture"],
+                capture_wait=ms["capture_wait"], interpreter_lock=lock,
+                rest=ms["wall"] - ms["warm_up"] - ms["capture"] - ms["capture_wait"] - lock,
+                warm_up_off_cpu=warm_off, capture_off_cpu=cap_off)
 
 
 # -- inputs ----------------------------------------------------------------------
@@ -255,6 +307,19 @@ def _graph_counts():
     return {k: dict(v) for k, v in graphs.stats()["by_fn"].items()}
 
 
+def _ba_key(capture: dict) -> dict:
+    """The (keyframes, points, observation rows, observations a point) key
+    of a logged bundle_adjustment capture (its mt0, X0, obs.uv and pt_obs
+    shapes), else nothing."""
+    if capture["fn"] != "bundle_adjustment":
+        return {}
+    two = [s for s in capture["shapes"] if len(s) == 2]
+    n_pt = next((s[0] for s in two if s[1] == 3), None)
+    return dict(ba_key=[next((s[0] for s in two if s[1] == 6), None), n_pt,
+                        next((s[0] for s in two if s[1] == 2), None),
+                        next((s[1] for s in two if s[0] == n_pt and s[1] != 3), None)])
+
+
 def full_system(dev, n_frames, chunk=1):
     """The whole pipeline with async mapping (bench.py:138-312): frames by
     kind (init, WORKING, keyframe: a keyframe was inserted) with ms as
@@ -281,36 +346,50 @@ def full_system(dev, n_frames, chunk=1):
         count["ba"] += 1
         return ba(kf)
 
+    process, passes = slam.mapper.process_keyframe, []
+
+    def split_pass(kf):
+        g0, c0, t0 = graphs.thread_seconds(), time.thread_time(), time.perf_counter()
+        try:
+            return process(kf)
+        finally:
+            wall, cpu, g1 = time.perf_counter() - t0, time.thread_time() - c0, \
+                graphs.thread_seconds()
+            passes.append(dict(thread=threading.current_thread().name, wall=wall, cpu=cpu,
+                               **{k: g1[k] - g0[k] for k in g1}))
+
     slam.tracker.interrupt_ba_fn = refused
     slam.mapper._local_bundle_adjustment = counted_ba
+    slam.mapper.process_keyframe = split_pass
     gt = synthetic.bench_trajectory(n_frames, radius=0.8)
     frames = render_frames(slam.rig, gt, dev)
-    before = _graph_counts()
+    before, n_log = _graph_counts(), len(graphs.stats()["log"])
     kinds, times, est, used = [], [], [], []
     t_start = time.perf_counter()
     t = 0
-    try:
-        while t < n_frames:
-            was_working = slam.state == TrackState.WORKING
-            n_kf = slam.map.n_keyframes()
-            if chunk > 1 and n_frames - t >= chunk:
-                Ms, ms = host_ms(lambda: slam.track_batch(
-                    frames[t:t + chunk], [x / 25.0 for x in range(t, t + chunk)],
-                    chunk=chunk), dev)
-            else:
-                Ms, ms = host_ms(lambda: [slam.track(frames[t], t / 25.0)], dev)
-            kind = ("init" if not was_working else
-                    "keyframe" if slam.map.n_keyframes() > n_kf else "working")
-            for j, M in enumerate(Ms):
-                times.append(ms / len(Ms))
-                kinds.append(kind)
-                if M is not None:
-                    est.append(np.asarray(M, np.float64)[:3, 3])
-                    used.append(t + j)
-            t += len(Ms)
-        total_s = time.perf_counter() - t_start
-    finally:
-        slam.shutdown()
+    with Utilization(dev) as util:       # the run, the mapper's last pass included
+        try:
+            while t < n_frames:
+                was_working = slam.state == TrackState.WORKING
+                n_kf = slam.map.n_keyframes()
+                if chunk > 1 and n_frames - t >= chunk:
+                    Ms, ms = host_ms(lambda: slam.track_batch(
+                        frames[t:t + chunk], [x / 25.0 for x in range(t, t + chunk)],
+                        chunk=chunk), dev)
+                else:
+                    Ms, ms = host_ms(lambda: [slam.track(frames[t], t / 25.0)], dev)
+                kind = ("init" if not was_working else
+                        "keyframe" if slam.map.n_keyframes() > n_kf else "working")
+                for j, M in enumerate(Ms):
+                    times.append(ms / len(Ms))
+                    kinds.append(kind)
+                    if M is not None:
+                        est.append(np.asarray(M, np.float64)[:3, 3])
+                        used.append(t + j)
+                t += len(Ms)
+            total_s = time.perf_counter() - t_start
+        finally:
+            slam.shutdown()
     after = _graph_counts()
     map_ms = list(slam.mapping_ms)
     ate = (float(ate_rmse(np.stack(est), gt[used, :3, 3])) if len(est) > 3 else None)
@@ -323,12 +402,20 @@ def full_system(dev, n_frames, chunk=1):
         ate_m=ate, n_keyframes=slam.map.n_keyframes(), n_points=slam.map.n_points(),
         mapping_ms=dict(first=map_ms[0] if map_ms else None, rest=spread(map_ms[1:])),
         mapping_passes=len(map_ms), keyframes_refused=count["refused"],
+        slowest_pass_split_ms=pass_split(passes),
+        device_idle_share=None if util.busy is None else 1.0 - util.busy,
+        utilization_samples=util.samples,
         passes_interrupted=len(map_ms) - count["ba"],
         frame_paths=dict(Counter(slam.tracker.frame_path)),
         graphs={k: dict(captures=v["captures"] - before.get(k, {}).get("captures", 0),
                         replays=v["replays"] - before.get(k, {}).get("replays", 0))
                 for k, v in after.items()},
-        pools_mib={k: v / 2 ** 20 for k, v in graphs.stats()["pools"].items()})
+        pools_mib={k: v / 2 ** 20 for k, v in graphs.stats()["pools"].items()},
+        # the run's captures: function, capturing thread, warm-up, seconds,
+        # and the local BA's key (keyframes, points, observation rows,
+        # observations a point)
+        captures=[dict(fn=c["fn"], thread=c["thread"], warm_up=c["warm_up"],
+                       seconds=c["seconds"], **_ba_key(c)) for c in graphs.stats()["log"][n_log:]])
     if chunk > 1:
         scans = slam.tracker.chunk_scans
         steady = [(b, s) for b, s, cap in scans if not cap]

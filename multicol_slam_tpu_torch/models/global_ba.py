@@ -14,7 +14,7 @@ visible card for a rig on a card, the rig's one device otherwise.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,14 +37,18 @@ def default_mesh(rig: Rig) -> list[torch.device]:
 
 def run_global_ba(rig: Rig, m, fixed_ids: Sequence[int], scale_factor: float, *,
                   iters: int = 10, huber: Optional[float] = None,
-                  devices: Optional[Sequence] = None) -> float:
+                  devices: Optional[Sequence] = None,
+                  bundle_adjust: Optional[Callable] = None) -> float:
     """Assemble and solve the full-map BA and write the result back into
     the MapStore. ``fixed_ids``: keyframes held as the gauge (the
     reference fixes KF0, cOptimizer.cpp:96-99; the loop closer fixes the
     loop keyframe); the lowest id if none of them exists. ``devices``: the
     mesh (``default_mesh(rig)`` if None); with more than one device the
     observations are sharded over it and the reduced system is solved on
-    the first. Returns the final chi2 summed over the valid observations, from
+    the first. ``bundle_adjust``: the single-device branch's adjuster
+    (``optimizer.bundle_adjustment`` if None; the loop closer and the
+    system pass it graphed on the card). Returns the final chi2 summed
+    over the valid observations, from
     either branch (the JAX package returns the robust cost from its
     sharded branch and this sum from the other; the Huber weighting is
     not in it), -1.0 for a degenerate problem."""
@@ -76,9 +80,9 @@ def run_global_ba(rig: Rig, m, fixed_ids: Sequence[int], scale_factor: float, *,
                                         problem.fixed_pt, mt_t.shape[0], X_t.shape[0], huber)
         chi2_t = cost_of(mt_t, X_t)[1]
     else:
-        mt_t, X_t, chi2_t = opt.bundle_adjustment(
-            rig, to_device(mt0, dev), to_device(X0, dev), problem, huber=huber,
-            iters=iters)
+        adjust = opt.bundle_adjustment if bundle_adjust is None else bundle_adjust
+        mt_t, X_t, chi2_t = adjust(rig, to_device(mt0, dev), to_device(X0, dev), problem,
+                                   huber=huber, iters=iters)
     mt, X, chi2, valid = fetch(mt_t, X_t, chi2_t, problem.obs.valid)
     for i, k in enumerate(kfs):
         if not fixed_mask[i]:

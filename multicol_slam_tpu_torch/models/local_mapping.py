@@ -265,6 +265,25 @@ def assemble_ba_problem(m: MapStore, kfs: list[int], fixed_mask: np.ndarray,
     return problem, mt0, X0, pts, rows
 
 
+def pad_ba_problem(problem, K: int, M: int):
+    """A BAProblem's observation table padded to K rows, appended invalid
+    (zero measurement, keyframe, camera and point 0, weight 1), and its
+    points' observation lists to M columns pointing at the table's old
+    last row, which is invalid: inert, as ``assemble_ba_problem``'s own
+    padding."""
+    obs, pt_obs = problem.obs, problem.pt_obs
+    n = K - obs.uv.shape[0]
+    pad = lambda t, fill: torch.cat([t, torch.full((n,) + tuple(t.shape[1:]), fill,
+                                                   dtype=t.dtype, device=t.device)])
+    cols = torch.full((pt_obs.shape[0], M - pt_obs.shape[1]), obs.uv.shape[0] - 1,
+                      dtype=pt_obs.dtype, device=pt_obs.device)
+    return problem._replace(
+        obs=opt.BAObservations(uv=pad(obs.uv, 0.0), kf=pad(obs.kf, 0), cam=pad(obs.cam, 0),
+                               pt=pad(obs.pt, 0), inv_sigma2=pad(obs.inv_sigma2, 1.0),
+                               valid=pad(obs.valid, False)),
+        pt_obs=torch.cat([pt_obs, cols], 1))
+
+
 @dataclasses.dataclass
 class LocalMapper:
     rig: Rig
@@ -285,16 +304,40 @@ class LocalMapper:
         # host copy of the rig extrinsics for the point statistics
         self._M_c_np = self.rig.M_c.detach().cpu().numpy().astype(np.float64)
         # the JAX package's four jitted units: CUDA graphs on the card, in
-        # the mapper's own pool, eager on the CPU
+        # the mapper's own pool (None on the CPU; the loop closer's graphs
+        # join it), eager on the CPU
         units = (triangulation_batch, cross_camera_batch, fuse_targets_batch,
                  opt.bundle_adjustment)
+        self.pool = None
+        self._last_ba = None            # the last local BA's (problem, mt0, X0)
         if self.dev.type == "cuda":
-            pool = graphs.Pool("mapper")
-            units = tuple(graphs.jit(u, pool) for u in units)
+            self.pool = graphs.Pool("mapper")
+            units = tuple(graphs.jit(u, self.pool) for u in units)
         self._triangulate, self._cross_camera, self._fuse, self._bundle_adjust = units
 
     def _to_dev(self, a) -> torch.Tensor:
         return to_device(a, self.dev)
+
+    def capture_ahead(self):
+        """On the card: capture the local BA's graphs at the next bucket of
+        the last BA problem's observation rows, of its points' observation
+        columns, and of both, that problem padded inertly to each
+        (``pad_ba_problem``), the results discarded. A map grows those two
+        axes first: over the bench's 90-frame runs on the H100 the
+        mapper's BA keys differed from the bootstrap's in them alone (16
+        keyframes and 1024 points throughout). The system calls this after
+        its bootstrap passes under async mapping, on the tracker's thread
+        before the mapper's first pass, so that the mapper's thread
+        replays those keys instead of capturing them beside the tracker's
+        frames."""
+        if self.pool is None or self._last_ba is None:
+            return
+        problem, mt0, X0 = self._last_ba
+        K, M = problem.obs.uv.shape[0], problem.pt_obs.shape[1]
+        for k, m in ((4 * (K - 1) + 1, M), (K, 4 * M), (4 * (K - 1) + 1, 4 * M)):
+            self._bundle_adjust(self.rig, self._to_dev(mt0), self._to_dev(X0),
+                                pad_ba_problem(problem, k, m), huber=opt.HUBER_LOCAL,
+                                iters=self.ba_iters)
 
     def _interrupted(self) -> bool:
         return bool(self.interrupt_check is not None and self.interrupt_check())
@@ -617,6 +660,7 @@ class LocalMapper:
         if built is None:
             return
         problem, mt0, X0, pts, rows = built
+        self._last_ba = (problem, mt0, X0)
         mt, X, chi2 = fetch(*self._bundle_adjust(
             self.rig, self._to_dev(mt0), self._to_dev(X0), problem,
             huber=opt.HUBER_LOCAL, iters=self.ba_iters))

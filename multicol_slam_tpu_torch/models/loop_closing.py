@@ -19,6 +19,18 @@ the rig's device; candidate bookkeeping and map surgery are host numpy.
 Every descriptor search launches the Hamming-NN kernel's entry A
 (``matcher.search_by_bow``, ``matcher.fuse_candidates`` and the mapper's
 fuse).
+
+The JAX package jits four units on this path: ``optimize_sim3``,
+``optimize_essential_graph``, ``fuse_candidates`` (the guided
+SearchBySim3 and the neighbourhood support) and the post-loop global
+``bundle_adjustment``. On the card the closer runs them as CUDA graphs
+(``utils/graphs.py``) in the pool it is given (the system hands it the
+mapper's, whose thread it runs on under async mapping, and the mapper's
+graphed BA); on the CPU it calls the modules' functions. Their inputs are
+padded so that a graph's key comes back: the Sim3 pairs and the
+projected landmarks to ``coarse_bucket``s, the essential graph's edges
+and keyframes too. The Sim3 RANSAC stays eager, as the JAX package's
+``vmap`` of it stays outside ``jit``.
 """
 
 from __future__ import annotations
@@ -31,12 +43,15 @@ import torch
 from ..ops import se3_np
 from ..ops.rig import Rig
 from ..ops.sim3 import Sim3, horn_alignment, sim3_exp, sim3_from_se3, sim3_log
+from ..utils import graphs
 from . import matcher
+from . import optimizer as opt
 from . import sim3_opt
 from .global_ba import run_global_ba
 from .keyframe_database import KeyFrameDatabase
+from .local_mapping import coarse_bucket
 from .map import MapStore
-from .tracking import bucket, fetch, frustum_check, to_device
+from .tracking import fetch, frustum_check, to_device
 from .vocabulary import Vocabulary, bow_score_l1, bow_vector, transform_words
 
 MIN_KFS_BETWEEN_LOOPS = 10     # cLoopClosing.cpp:125
@@ -47,6 +62,16 @@ MIN_TOTAL_MATCHES = 20         # :400-424
 MIN_FEAT_GRAPH = 100           # cOptimizerLoopStuff.cpp:303 minNumFeat
 RANSAC_HYPS = 256
 RANSAC_CHI2 = 9.21             # per-direction gate (cSim3Solver.cpp:374-415)
+# the smallest padded sizes (each grows by fours, ``coarse_bucket``): Sim3
+# pairs, landmarks projected through a Sim3, essential-graph edges and
+# keyframes
+SIM3_PAIRS_MIN = 256
+PROJECTED_MIN = 256
+GRAPH_EDGES_MIN = 64
+GRAPH_KFS_MIN = 16
+# the jitted units of the loop path, by the module that defines each
+UNITS = {"optimize_sim3": sim3_opt, "optimize_essential_graph": sim3_opt,
+         "fuse_candidates": matcher, "bundle_adjustment": opt}
 
 
 def sample_sim3_sets(gen: torch.Generator, n_hyps: int, n: int) -> torch.Tensor:
@@ -89,6 +114,10 @@ class LoopCloser:
     global_ba_iters: int = 0
     scale_factor: float = 1.2
     n_levels: int = 8
+    # on the card: the graphs.Pool of the units' graphs (a pool of the
+    # closer's own if None) and a (graphed) bundle_adjustment to share
+    pool: object = None
+    bundle_adjust: object = None
 
     def __post_init__(self):
         self.dev = self.rig.M_c.device
@@ -100,6 +129,20 @@ class LoopCloser:
         self.on_loop = None          # callback(kf, loop_kf) after a correction
         # the Sim3 RANSAC's sampling stream (the JAX package's PRNGKey(7))
         self.gen = torch.Generator(device=self.dev).manual_seed(7)
+        # the jitted units: CUDA graphs on the card, none on the CPU
+        self.graphs: dict = {}
+        if self.dev.type == "cuda":
+            pool = self.pool if self.pool is not None else graphs.Pool("loop")
+            self.graphs = {name: graphs.jit(getattr(mod, name), pool)
+                           for name, mod in UNITS.items()}
+            if self.bundle_adjust is not None:
+                self.graphs["bundle_adjustment"] = self.bundle_adjust
+
+    def unit(self, name: str):
+        """The jitted unit ``name`` of ``UNITS``: its graph on the card; on
+        the CPU the module's function as it stands at the call."""
+        g = self.graphs.get(name)
+        return g if g is not None else getattr(UNITS[name], name)
 
     def _to_dev(self, a, dtype=None) -> torch.Tensor:
         return to_device(a, self.dev, dtype)
@@ -301,8 +344,8 @@ class LoopCloser:
             return None
 
         # OptimizeSim3
-        S12, _, n_in = sim3_opt.optimize_sim3(self.rig, _index(S_hyp, best), obs,
-                                              iters=10, fix_scale=self.fix_scale)
+        S12, _, n_in = self.unit("optimize_sim3")(self.rig, _index(S_hyp, best), obs,
+                                                  iters=10, fix_scale=self.fix_scale)
         n_in = int(n_in)
         if n_in < MIN_SIM3_INLIERS:
             return None
@@ -315,8 +358,8 @@ class LoopCloser:
             obs2 = self._make_sim3_obs(
                 kf, cand, pairs2, self._body_frame_points(kf, [p[0] for p in pairs2]),
                 self._body_frame_points(cand, [p[1] for p in pairs2]))
-            S12b, _, n_in2 = sim3_opt.optimize_sim3(self.rig, S12, obs2, iters=10,
-                                                    fix_scale=self.fix_scale)
+            S12b, _, n_in2 = self.unit("optimize_sim3")(self.rig, S12, obs2, iters=10,
+                                                        fix_scale=self.fix_scale)
             if int(n_in2) >= n_in:
                 S12, n_in = S12b, int(n_in2)
 
@@ -336,7 +379,7 @@ class LoopCloser:
         Xk = fetch(S12.apply(self._to_dev(self._body_frame_points(cand, pts))))[0]
         M_kf = se3_np.cayley2hom(m.kf_pose[kf])
         Xw = Xk @ M_kf[:3, :3].T + M_kf[:3, 3]
-        cap = bucket(P, 256)
+        cap = coarse_bucket(P, PROJECTED_MIN)
         pad = lambda a, fill=0: self._to_dev(np.concatenate(
             [a, np.full((cap - P,) + a.shape[1:], fill, a.dtype)], 0))
         uv, ok, lvl, _ = frustum_check(
@@ -344,7 +387,7 @@ class LoopCloser:
             pad(m.pt_normal[pts]), pad(m.pt_min_dist[pts]), pad(m.pt_max_dist[pts], 1.0),
             n_levels=self.n_levels, scale_factor=self.scale_factor, dist_slack=2.0)
         ok = ok & (torch.arange(cap, device=self.dev) < P)
-        match = matcher.fuse_candidates(
+        match = self.unit("fuse_candidates")(
             m.kf_features[kf], self._to_dev(m.kf_pt[kf] >= 0), pad(m.pt_desc[pts]),
             pad(m.pt_desc_mask[pts]), uv, ok, lvl, self.params, th=7.5,
             loose_desc=True)
@@ -398,12 +441,20 @@ class LoopCloser:
         return int((self._project_through_sim3(kf, cand, pts, S12) >= 0).sum())
 
     def _make_sim3_obs(self, kf1, kf2, pairs, X1, X2) -> sim3_opt.Sim3Obs:
+        """The pairs' Sim3Obs, padded to ``coarse_bucket(n, SIM3_PAIRS_MIN)``
+        rows: a padded row repeats the first pair with ``valid`` False, a
+        finite point in front of its camera (a zero point's projection
+        Jacobian is NaN, and NaN times a zero weight is NaN in H), so it
+        adds exact zeros to OptimizeSim3's H, g and cost."""
         m = self.map
         h1, h2 = m.kf_host(kf1), m.kf_host(kf2)
-        a = np.asarray(pairs, np.int64).reshape(-1, 6)
+        n = len(pairs)
+        rows = np.concatenate([np.arange(n), np.zeros(coarse_bucket(n, SIM3_PAIRS_MIN) - n,
+                                                      np.int64)])
+        a = np.asarray(pairs, np.int64).reshape(-1, 6)[rows]
+        X1, X2 = np.asarray(X1)[rows], np.asarray(X2)[rows]
         c1, s1, c2, s2 = a[:, 2], a[:, 3], a[:, 4], a[:, 5]
         sf = self.params.scale_factor
-        n = len(a)
         return sim3_opt.Sim3Obs(
             X1=self._to_dev(X1), X2=self._to_dev(X2),
             uv1=self._to_dev(h1.xy[c1, s1]),
@@ -411,7 +462,7 @@ class LoopCloser:
             cam1=self._to_dev(c1.astype(np.int32)), cam2=self._to_dev(c2.astype(np.int32)),
             inv_sigma2_1=self._to_dev(sf ** (-2.0 * h1.level[c1, s1].astype(np.float64))),
             inv_sigma2_2=self._to_dev(sf ** (-2.0 * h2.level[c2, s2].astype(np.float64))),
-            valid=self._to_dev(np.ones(n, bool)))
+            valid=self._to_dev(np.arange(len(rows)) < n))
 
     # ------------------------------------------------------------------
 
@@ -537,9 +588,10 @@ class LoopCloser:
         src = np.where(e[:, 2:3] == 1, logs_init[e[:, 0]], logs_pre[e[:, 0]])
         dst = np.where(e[:, 2:3] == 1, logs_init[e[:, 1]], logs_pre[e[:, 1]])
         meas = fetch(sim3_log(exp(src).compose(exp(dst).inverse())))[0]
-        # padded to buckets, as the JAX package pads against recompiles
+        # padded to buckets that grow by fours, as the JAX package pads
+        # against recompiles (its buckets grow by 16 edges and 8 keyframes)
         E = len(e)
-        Ecap, Ncap = bucket(E, 16), bucket(N, 8)
+        Ecap, Ncap = coarse_bucket(E, GRAPH_EDGES_MIN), coarse_bucket(N, GRAPH_KFS_MIN)
         fixed = np.ones(Ncap, bool)       # padding vertices held fixed
         fixed[:N] = False
         fixed[idx_of[loop_kf]] = True
@@ -549,7 +601,7 @@ class LoopCloser:
             meas=self._to_dev(pad_e(meas)), valid=self._to_dev(np.arange(Ecap) < E),
             fixed=self._to_dev(fixed))
         logs_in = np.concatenate([logs_init, np.zeros((Ncap - N, 7), logs_init.dtype)])
-        logs_opt = fetch(sim3_opt.optimize_essential_graph(
+        logs_opt = fetch(self.unit("optimize_essential_graph")(
             self._to_dev(logs_in), graph, iters=20, fix_scale=self.fix_scale))[0][:N]
 
         # (6)
@@ -579,7 +631,8 @@ class LoopCloser:
     def _global_ba(self, fixed_kf: int):
         """Post-loop global BA through ``global_ba.run_global_ba``, the
         loop keyframe as the gauge so the corrected region anchors the
-        map."""
+        map, with the closer's bundle_adjustment unit."""
         run_global_ba(self.rig, self.map, [fixed_kf], self.scale_factor,
-                      iters=self.global_ba_iters)
+                      iters=self.global_ba_iters,
+                      bundle_adjust=self.unit("bundle_adjustment"))
 

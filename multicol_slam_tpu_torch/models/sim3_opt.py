@@ -7,9 +7,19 @@ residuals over matched landmark pairs, Huber 1.345 * 4, two LM rounds
 with an outlier gate between them. OptimizeEssentialGraph (:267-513): a
 Sim3 pose graph over all keyframes with residual log(S_ij S_j S_i^-1)
 (g2o_MultiCol_sim3_expmap.h:47-111), solved by Gauss-Newton on the
-dense (7N)^2 normal equations. Both run once per loop candidate, not per
-frame, so their Jacobians come from ``torch.func.jacfwd`` as the JAX
-package's come from ``jax.jacfwd``.
+dense (7N)^2 normal equations.
+
+The JAX package differentiates both residuals with ``jax.jacfwd``; here
+the Jacobians are written out (``sim3_linearize``, ``edge_linearize``)
+from the tangents of ``ops/sim3.py``'s ``*_jvp`` functions and the rig
+projection's Jacobian (``optimizer._projection_jacobian``), the same
+derivative forward-mode autodiff takes, branch by branch. OptimizeSim3's
+iterate is a log v7 against ``S12_init``, so the Jacobian is that of
+``sim3_exp`` at v7, not at zero. The essential graph sums its blocks
+through ``optimizer.RowSum``: in row order on the CPU and on CUDA alike,
+so a CUDA graph's replay equals its eager call. Both functions read no
+device tensor on the host, so the loop closer runs them as CUDA graphs
+on the card.
 """
 
 from __future__ import annotations
@@ -17,19 +27,20 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd, vmap
 
 from ..ops.camera import world_to_img
 from ..ops.geometry import inv_se3
 from ..ops.rig import Rig
-from ..ops.sim3 import Sim3, sim3_exp, sim3_log
+from ..ops.sim3 import Sim3, compose_jvp, inverse_jvp, sim3_exp, sim3_exp_jvp, sim3_log_jvp
+from .optimizer import RowSum, _projection_jacobian
 
 HUBER_SIM3 = 1.345 * 4.0   # stdSim = 4.0 (cOptimizerLoopStuff.cpp:55)
 CHI2_GATE = 9.21           # chi2(2 dof, 99%) per direction (cSim3Solver gate)
 
 
 class Sim3Obs(NamedTuple):
-    """Matched landmark pairs for OptimizeSim3 (K rows)."""
+    """Matched landmark pairs for OptimizeSim3 (K rows; rows with ``valid``
+    False weigh nothing)."""
 
     X1: torch.Tensor           # (K, 3) points in keyframe 1's body frame
     X2: torch.Tensor           # (K, 3) in keyframe 2's body frame
@@ -60,6 +71,35 @@ def sim3_residuals(rig: Rig, S: Sim3, obs: Sim3Obs):
     return obs.uv1 - project(x1p, c1), obs.uv2 - project(x2p, c2)
 
 
+def sim3_linearize(rig: Rig, v7: torch.Tensor, S12_init: Sim3, obs: Sim3Obs):
+    """``sim3_residuals`` at S = exp(v7) o S12_init (the same values) and
+    their Jacobians d r / d v7: ((r1, r2) (K, 2) each, (J1, J2) (K, 2, 7)
+    each). Each side's point through S (or S^-1) takes the Sim3's
+    tangent, then its camera's extrinsics and the projection's Jacobian."""
+    dt, dev = v7.dtype, v7.device
+    E, dE = sim3_exp_jvp(v7, torch.eye(7, dtype=dt, device=dev))
+    S, dS = compose_jvp(E, dE, S12_init, None)
+    Si, dSi = inverse_jvp(S, dS)
+    T = inv_se3(rig.M_c)
+    c1, c2 = obs.cam1.long(), obs.cam2.long()
+
+    def through(S, dS, X, c, uv):
+        # s R X + t and its tangent (K, 7, 3), then the camera frame and
+        # the projection
+        RX = torch.einsum("ij,kj->ki", S.R, X)
+        dx = (dS.s[None, :, None] * RX[:, None, :]
+              + S.s * torch.einsum("mij,kj->kmi", dS.R, X) + dS.t[None])
+        Tc, cam = T[c], rig.cams.index(c)
+        Xc = torch.einsum("kij,kj->ki", Tc[:, :3, :3], S.s * RX + S.t) + Tc[:, :3, 3]
+        dXc = torch.einsum("kij,kmj->kmi", Tc[:, :3, :3], dx)
+        return (uv - world_to_img(cam, Xc),
+                -torch.einsum("kai,kmi->kam", _projection_jacobian(cam, Xc), dXc))
+
+    (r1, J1), (r2, J2) = (through(S, dS, obs.X2, c1, obs.uv1),
+                          through(Si, dSi, obs.X1, c2, obs.uv2))
+    return (r1, r2), (J1, J2)
+
+
 def sim3_chi2(rig: Rig, S: Sim3, obs: Sim3Obs):
     """Unweighted squared reprojection error in each direction (..., K)."""
     r1, r2 = sim3_residuals(rig, S, obs)
@@ -75,6 +115,7 @@ def optimize_sim3(rig: Rig, S12_init: Sim3, obs: Sim3Obs, iters: int = 10,
     scale row and column. Returns (S12, inlier mask, n_inliers)."""
     dt, dev = obs.X1.dtype, obs.X1.device
     eye7 = torch.eye(7, dtype=dt, device=dev)
+    free = torch.arange(7, device=dev) != 6
 
     def chi2_pair(v7):
         r1, r2 = sim3_residuals(rig, sim3_exp(v7).compose(S12_init), obs)
@@ -91,27 +132,20 @@ def optimize_sim3(rig: Rig, S12_init: Sim3, obs: Sim3Obs, iters: int = 10,
     def step(v7, lam, w_valid):
         w1 = torch.sqrt(obs.inv_sigma2_1 * w_valid)
         w2 = torch.sqrt(obs.inv_sigma2_2 * w_valid)
-
-        def flat_res(v):
-            # v[None]: forward-mode AD in torch 2.13 gives a 0-dim slice
-            # times a Python scalar a float64 tangent; a (1,) slice does not
-            r1, r2 = sim3_residuals(rig, sim3_exp(v[None]).compose(S12_init), obs)
-            return torch.cat([r1[0] * w1[:, None], r2[0] * w2[:, None]], 0)
-
-        r = flat_res(v7).reshape(-1)
-        J = jacfwd(flat_res)(v7).reshape(-1, 7)
-        c1, c2 = chi2_pair(v7)
+        (r1, r2), (J1, J2) = sim3_linearize(rig, v7, S12_init, obs)
+        r = torch.cat([r1 * w1[:, None], r2 * w2[:, None]], 0).reshape(-1)
+        J = torch.cat([J1 * w1[:, None, None], J2 * w2[:, None, None]], 0).reshape(-1, 7)
+        c1 = (r1 * r1).sum(-1) * obs.inv_sigma2_1
+        c2 = (r2 * r2).sum(-1) * obs.inv_sigma2_2
         e = torch.sqrt(torch.clamp(torch.cat([c1, c2], 0), min=1e-12))
         w_h = torch.where(e <= huber, torch.ones_like(e), huber / e).repeat_interleave(2)
         H = J.T @ (J * w_h[:, None])
         g = J.T @ (r * w_h)
         if fix_scale:
-            H = H.clone()
-            H[6, :] = 0.0
-            H[:, 6] = 0.0
-            H[6, 6] = 1.0
-            g = g.clone()
-            g[6] = 0.0
+            # the scale's row and column of the identity, its gradient 0
+            # (selected, not set: a graph cannot copy a host scalar)
+            H = torch.where(free[:, None] & free[None, :], H, eye7)
+            g = torch.where(free, g, torch.zeros_like(g))
         return v7 - torch.linalg.solve_ex(H + lam * eye7, g)[0]
 
     def lm_rounds(v7, active, n):
@@ -146,13 +180,28 @@ class EssentialGraph(NamedTuple):
     fixed: torch.Tensor    # (N,) bool
 
 
-def _edge_residual(vi, vj, m):
-    # (1, 7) operands: see optimize_sim3's flat_res on 0-dim tangents
-    vi, vj, m = vi[None], vj[None], m[None]
-    return sim3_log(sim3_exp(m).compose(sim3_exp(vj)).compose(sim3_exp(vi).inverse()))[0]
+def edge_linearize(logs: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor, M: Sim3):
+    """The edges' residuals r = log(M o exp(v_j) o exp(v_i)^-1) (E, 7)
+    over vertex logs (N, 7), edge ends ei, ej (E,) and measurements M =
+    sim3_exp(meas) (E), and d r / d v_i and d r / d v_j (E, 7, 7): each
+    vertex's exp and its inverse with their 7 tangents once, gathered to
+    the edges' ends as one set of 14 directions (the first 7 v_i's, the
+    last 7 v_j's), then both compositions and the log. Returns (r, Ji,
+    Jj)."""
+    N, dt, dev = logs.shape[0], logs.dtype, logs.device
+    V, dV = sim3_exp_jvp(logs, torch.eye(7, dtype=dt, device=dev).expand(N, 7, 7))
+    Vi, dVi = inverse_jvp(V, dV)
 
+    def ends(S, dS, idx, first):
+        # the Sim3s at idx, their tangents in the first or last 7 of 14
+        def place(d):
+            d, z = d[idx], torch.zeros_like(d[idx])
+            return torch.cat([d, z] if first else [z, d], 1)
+        return Sim3(S.s[idx], S.R[idx], S.t[idx]), Sim3(place(dS.s), place(dS.R), place(dS.t))
 
-_edge_jacobians = vmap(jacfwd(_edge_residual, argnums=(0, 1)))
+    X, dX = compose_jvp(M, None, *ends(V, dV, ej, False))
+    r, dr = sim3_log_jvp(*compose_jvp(X, dX, *ends(Vi, dVi, ei, True)))
+    return r, dr[:, :7].transpose(-1, -2), dr[:, 7:].transpose(-1, -2)
 
 
 def optimize_essential_graph(S0_log: torch.Tensor, graph: EssentialGraph,
@@ -163,6 +212,8 @@ def optimize_essential_graph(S0_log: torch.Tensor, graph: EssentialGraph,
     normal equations damped by 1e-6, with fixed vertices (and, under
     ``fix_scale``, every vertex's scale) held by identity rows, and
     subtracts the step from the logs. Returns the (N, 7) optimized logs.
+    Padded edges (``valid`` False) add exact zeros; the blocks are summed
+    per target in edge order (``RowSum``).
 
     ``fix_scale`` is the reference vertex's scale gate
     (g2o_MultiCol_sim3_expmap.h:63-66), which it defines but never enables;
@@ -177,21 +228,24 @@ def optimize_essential_graph(S0_log: torch.Tensor, graph: EssentialGraph,
         fixed7 = fixed7 | (torch.arange(7 * N, device=dev) % 7 == 6)
     eye = torch.eye(7 * N, dtype=dt, device=dev)
     hold = fixed7[:, None] | fixed7[None, :]
+    # the four blocks of each edge, then its two gradients, in this order
+    live = graph.valid
+    by_block = RowSum(torch.cat([ei * N + ei, ej * N + ej, ei * N + ej, ej * N + ei]), N * N,
+                      torch.cat([live] * 4))
+    by_vertex = RowSum(torch.cat([ei, ej]), N, torch.cat([live] * 2))
+    M = sim3_exp(graph.meas)
     logs = S0_log
     for _ in range(iters):
-        r = vmap(_edge_residual)(logs[ei], logs[ej], graph.meas) * w[:, None]
-        Ji, Jj = _edge_jacobians(logs[ei], logs[ej], graph.meas)
+        r, Ji, Jj = edge_linearize(logs, ei, ej, M)
+        r = r * w[:, None]
         Ji = Ji * w[:, None, None]
         Jj = Jj * w[:, None, None]
-        H = torch.zeros((N * N, 7, 7), dtype=dt, device=dev)
-        H.index_add_(0, ei * N + ei, torch.einsum("eri,erj->eij", Ji, Ji))
-        H.index_add_(0, ej * N + ej, torch.einsum("eri,erj->eij", Jj, Jj))
         Hij = torch.einsum("eri,erj->eij", Ji, Jj)
-        H.index_add_(0, ei * N + ej, Hij)
-        H.index_add_(0, ej * N + ei, Hij.transpose(-1, -2))
-        g = torch.zeros((N, 7), dtype=dt, device=dev)
-        g.index_add_(0, ei, torch.einsum("eri,er->ei", Ji, r))
-        g.index_add_(0, ej, torch.einsum("eri,er->ei", Jj, r))
+        H = by_block.sum(torch.cat([torch.einsum("eri,erj->eij", Ji, Ji),
+                                    torch.einsum("eri,erj->eij", Jj, Jj),
+                                    Hij, Hij.transpose(-1, -2)]))
+        g = by_vertex.sum(torch.cat([torch.einsum("eri,er->ei", Ji, r),
+                                     torch.einsum("eri,er->ei", Jj, r)]))
         Hmat = H.reshape(N, N, 7, 7).permute(0, 2, 1, 3).reshape(7 * N, 7 * N)
         Hmat = torch.where(hold, eye, Hmat + 1e-6 * eye)
         gvec = torch.where(fixed7, torch.zeros_like(fixed7, dtype=dt), g.reshape(7 * N))

@@ -32,9 +32,10 @@ import torch
 
 from ..ops.camera import make_extraction_masks
 from ..ops.pyramid import level_sizes
-from ..utils import config_io
+from ..utils import config_io, graphs
 from ..utils.trajectory import save_tum
 from . import matcher
+from . import optimizer as opt
 from . import vocabulary as vocab_mod
 from .extractor import ExtractorConfig, Features, make_extractor
 from .global_ba import run_global_ba
@@ -130,6 +131,10 @@ class MultiColSLAM:
         self.mapper = LocalMapper(self.rig, self.map, params,
                                   scale_factor=s.scale_factor,
                                   n_levels=s.n_levels)
+        # global_bundle_adjustment runs on the caller's thread: on the card
+        # its BA graphs in the tracker's shared pool
+        self._global_adjust = (graphs.jit(opt.bundle_adjustment)
+                               if self.device.type == "cuda" else opt.bundle_adjustment)
         # loop closing: the vocabulary is loaded from ``vocabulary_path`` or
         # trained from the first keyframe's descriptors, then retrained on
         # VOCAB_RETRAIN_KFS keyframes with per-document idf
@@ -232,11 +237,14 @@ class MultiColSLAM:
             # same-place pairs score about 0.10 above others
             voc = vocab_mod.train_vocabulary(self._kf_descriptors(kf), k=10, levels=4)
         # the metric rig observes Sim3 scale: hold it in OptimizeSim3 and
-        # the essential graph
+        # the essential graph. The closer's units graph in the mapper's pool
+        # (it runs on the mapper's thread, or with the mapper's units on
+        # the tracker's), and its global BA shares the mapper's graphed BA
         lc = LoopCloser(self.rig, self.map, voc, KeyFrameDatabase(), self._loop_params,
                         fix_scale=True, fuser=self.mapper,
                         scale_factor=self.settings.scale_factor,
-                        n_levels=self.settings.n_levels)
+                        n_levels=self.settings.n_levels, pool=self.mapper.pool,
+                        bundle_adjust=self.mapper._bundle_adjust)
         # the tracker reads the vocabulary on its own stream: the copy to
         # the device lands before the closer is published
         self._stream_sync()
@@ -351,12 +359,16 @@ class MultiColSLAM:
 
     def _process_init_kfs(self, kf0: int, kf1: int):
         # the bootstrap keyframes are mapped inline; under async mapping
-        # the mapper's stream reads their features later
+        # the mapper's stream reads their features later, and the local
+        # BA's next buckets are captured here, not on the mapper's thread
+        # beside the tracker's frames
         if self._mapper_stream is not None:
             self._share_with_mapper(kf0)
             self._share_with_mapper(kf1)
         self._process_kf(kf0)
         self._process_kf(kf1)
+        if self._mapper_thread is not None:
+            self.mapper.capture_ahead()
 
     def _mapper_loop(self):
         """The mapper thread: a mapping pass and the loop closer's
@@ -480,14 +492,15 @@ class MultiColSLAM:
     def global_bundle_adjustment(self, iters: int = 10) -> float:
         """cOptimizer::GlobalBundleAdjustment (cOptimizer.cpp:57-257): joint
         LM over every keyframe pose and point, the first keyframe fixed as
-        the gauge, on one device; then the points' viewing rays and
+        the gauge, on one device (on the card a CUDA graph in the shared
+        pool, on the caller's thread); then the points' viewing rays and
         distance ranges are refreshed. Returns the final summed chi2."""
         m = self.map
         kfs = m.keyframe_ids().tolist()
         if len(kfs) < 2:
             return 0.0
         cost = run_global_ba(self.rig, m, [min(kfs)], self.settings.scale_factor,
-                             iters=iters)
+                             iters=iters, bundle_adjust=self._global_adjust)
         if cost < 0:
             return 0.0
         m.update_point_stats(np.nonzero(m.pt_valid)[0].astype(np.int64),

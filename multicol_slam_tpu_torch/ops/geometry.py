@@ -100,6 +100,65 @@ def rot2rodrigues(R: torch.Tensor) -> torch.Tensor:
     return v * s[..., None]
 
 
+def rodrigues2rot_jvp(w: torch.Tensor, dw: torch.Tensor):
+    """``rodrigues2rot(w)`` and its derivatives along the tangents dw
+    (..., J, 3): (R (..., 3, 3), dR (..., J, 3, 3)). Each branch's own
+    derivative where it is selected, as forward-mode autodiff takes it;
+    the branch not selected stays finite."""
+    theta2 = (w * w).sum(-1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    K = skew(w)
+    K2 = K @ K
+    big = theta2 > 1e-16
+    one = torch.ones_like(theta)
+    th_b, th2_b = torch.where(big, theta, one), torch.where(big, theta2, one)
+    sn, cs = torch.sin(theta), torch.cos(theta)
+    a = torch.where(big, sn / theta, 1.0 - theta2 / 6.0)
+    b = torch.where(big, (1.0 - cs) / theta2, 0.5 - theta2 / 24.0)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    R = eye + a[..., None, None] * K + b[..., None, None] * K2
+    dth2 = 2.0 * (w[..., None, :] * dw).sum(-1)                 # (..., J)
+    dth = dth2 / (2.0 * theta[..., None])
+    da = torch.where(big[..., None],
+                     ((cs * th_b - sn) / (th_b * th_b))[..., None] * dth, -dth2 / 6.0)
+    db = torch.where(big[..., None],
+                     (sn / th2_b)[..., None] * dth
+                     - ((1.0 - cs) / (th2_b * th2_b))[..., None] * dth2, -dth2 / 24.0)
+    dK = skew(dw)
+    Kx, K2x = K[..., None, :, :], K2[..., None, :, :]
+    dR = (da[..., None, None] * Kx + a[..., None, None, None] * dK + db[..., None, None] * K2x
+          + b[..., None, None, None] * (dK @ Kx + Kx @ dK))
+    return R, dR
+
+
+def rot2rodrigues_jvp(R: torch.Tensor, dR: torch.Tensor):
+    """``rot2rodrigues(R)`` and its derivatives along the tangents dR
+    (..., J, 3, 3): (w (..., 3), dw (..., J, 3)). The angle's derivative
+    passes the clamp where the clamp's input lies in [-1, 1], as torch's
+    does; at theta <= 1e-6 the scale 0.5 is a constant, and the arccos
+    derivative, infinite at theta = 0, is not used there."""
+    tr = torch.einsum("...ii->...", R)
+    x = (tr - 1.0) / 2.0
+    xc = torch.clamp(x, -1.0, 1.0)
+    theta = torch.arccos(xc)
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], -1)
+    big = theta > 1e-6
+    one = torch.ones_like(theta)
+    th_b = torch.where(big, theta, one)
+    sin_b = torch.sin(th_b)
+    s = torch.where(big, theta / (2.0 * torch.sin(torch.where(big, theta, one))), 0.5 * one)
+    dtr = torch.einsum("...jii->...j", dR)
+    dx = torch.where(((x >= -1.0) & (x <= 1.0))[..., None], dtr / 2.0, torch.zeros_like(dtr))
+    dth = -dx / torch.sqrt(torch.where(big, 1.0 - xc * xc, one))[..., None]
+    ds = torch.where(big[..., None],
+                     ((sin_b - th_b * torch.cos(th_b)) / (2.0 * sin_b * sin_b))[..., None] * dth,
+                     torch.zeros_like(dth))
+    dv = torch.stack([dR[..., 2, 1] - dR[..., 1, 2], dR[..., 0, 2] - dR[..., 2, 0],
+                      dR[..., 1, 0] - dR[..., 0, 1]], -1)
+    return v * s[..., None], dv * s[..., None, None] + v[..., None, :] * ds[..., None]
+
+
 def _bottom_row(top: torch.Tensor) -> torch.Tensor:
     """[0 0 0 1] rows for (..., 3, 4) ``top``, made on its device (a tensor
     built from a Python list would be a host-to-device copy, which waits
@@ -123,15 +182,9 @@ def hom2cayley(M: torch.Tensor) -> torch.Tensor:
 
 def skew(t: torch.Tensor) -> torch.Tensor:
     """3-vector (..., 3) -> 3x3 skew matrix (misc.h Skew)."""
-    z = torch.zeros_like(t[..., 0])
-    return torch.stack(
-        [
-            torch.stack([z, -t[..., 2], t[..., 1]], -1),
-            torch.stack([t[..., 2], z, -t[..., 0]], -1),
-            torch.stack([-t[..., 1], t[..., 0], z], -1),
-        ],
-        -2,
-    )
+    x, y, z = t.unbind(-1)
+    o = torch.zeros_like(x)
+    return torch.stack([o, -z, y, z, o, -x, -y, x, o], -1).reshape(t.shape + (3,))
 
 
 def inv_se3(M: torch.Tensor) -> torch.Tensor:
@@ -146,9 +199,10 @@ def inv_se3(M: torch.Tensor) -> torch.Tensor:
 
 def horner(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """sum_i coeffs[..., i] * x^i, lowest order first (misc.h:115-122)."""
-    res = torch.zeros_like(x) + coeffs[..., -1]
-    for i in range(coeffs.shape[-1] - 2, -1, -1):
-        res = res * x + coeffs[..., i]
+    cs = coeffs.unbind(-1)
+    res = torch.zeros_like(x) + cs[-1]
+    for c in cs[-2::-1]:
+        res = res * x + c
     return res
 
 

@@ -4,6 +4,14 @@ Port of ``multicol_slam_tpu/ops/sim3.py`` (reference cSim3Solver.cpp:
 286-371 for Horn's 1987 absolute orientation, g2o_MultiCol_sim3_expmap.h
 for the Sim3 vertex whose error is log(Sij Si Sj^-1)). A Sim3 is
 (s, R, t) with x' = s R x + t, every field batched over leading dims.
+
+The ``*_jvp`` functions give a value and its derivatives along J tangent
+directions, written out (the JAX package takes them with ``jax.jacfwd``):
+a tangent of a Sim3 is a ``Sim3`` of derivatives, s (..., J), R (..., J,
+3, 3), t (..., J, 3); of a 7-vector (..., J, 7). Where the value selects
+between a closed form and its series, the derivative is the selected
+branch's, as forward-mode autodiff takes it, and the branch not selected
+stays finite.
 """
 
 from __future__ import annotations
@@ -12,7 +20,8 @@ from typing import NamedTuple
 
 import torch
 
-from .geometry import inv3x3, rodrigues2rot, rot2rodrigues, skew
+from .geometry import (inv3x3, rodrigues2rot, rodrigues2rot_jvp, rot2rodrigues,
+                       rot2rodrigues_jvp, skew)
 
 
 def _mv(R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -107,6 +116,146 @@ def _sim3_W_coeffs(sigma, theta, s):
     B = torch.where(sg_small, B0, torch.where(th_small, Bn_t0, Bn))
     C = torch.where(sg_small, one, Cn)
     return A, B, C
+
+
+# -- derivatives ---------------------------------------------------------------
+
+def _quot(n, dn, d, dd):
+    """n / d and its derivatives (..., J) from those of n and d, the
+    values (..., 1)."""
+    q = n / d
+    return q, (dn - q * dd) / d
+
+
+def _sim3_W_coeffs_jvp(sigma, dsigma, theta, dtheta, s, ds):
+    """``_sim3_W_coeffs`` and the derivatives of A, B, C (..., J) along
+    the tangents of sigma, theta and s (..., J), branch by branch. The
+    values are taken as (..., 1), so that they broadcast against the
+    tangents, and A, B, C come back so."""
+    eps = 1e-5
+    sigma, theta, s = sigma[..., None], theta[..., None], s[..., None]
+    one = torch.ones_like(sigma)
+    zero = torch.zeros_like(dsigma)
+    sigma2 = sigma * sigma
+    th_small = theta < eps
+    sg_small = torch.abs(sigma) < eps
+    either = th_small | sg_small
+    sn, cs = torch.sin(theta), torch.cos(theta)
+    dsg2 = 2.0 * sigma * dsigma
+    t2 = theta * theta
+    dt2 = 2.0 * theta * dtheta
+    # theta -> 0 with sigma -> 0: SO3's series
+    A0, dA0 = _quot(1.0 - cs, sn * dtheta, torch.clamp(t2, min=eps * eps),
+                    torch.where(t2 >= eps * eps, dt2, zero))
+    B0, dB0 = _quot(theta - sn, (1.0 - cs) * dtheta, torch.clamp(theta ** 3, min=eps ** 3),
+                    torch.where(theta ** 3 >= eps ** 3, 3.0 * t2 * dtheta, zero))
+    A0 = torch.where(th_small, 0.5 * one, A0)
+    B0 = torch.where(th_small, one / 6.0, B0)
+    dA0 = torch.where(th_small, zero, dA0)
+    dB0 = torch.where(th_small, zero, dB0)
+    # sigma's closed forms
+    Cn, dCn = _quot(s - 1.0, ds, torch.where(sg_small, one, sigma),
+                    torch.where(sg_small, zero, dsigma))
+    An_t0, dAn_t0 = _quot(s * sigma - s + 1.0, ds * sigma + s * dsigma - ds,
+                          torch.where(sg_small, one, sigma2), torch.where(sg_small, zero, dsg2))
+    Bn_t0, dBn_t0 = _quot(
+        0.5 * sigma2 * s - s + 1.0 + sigma * s,
+        0.5 * dsg2 * s + 0.5 * sigma2 * ds - ds + dsigma * s + sigma * ds,
+        torch.where(sg_small, one, sigma2 * sigma),
+        torch.where(sg_small, zero, 3.0 * sigma2 * dsigma))
+    a, b = s * sn, s * cs
+    da = ds * sn + (s * cs) * dtheta
+    db = ds * cs - (s * sn) * dtheta
+    c = t2 + sigma2
+    dc = dt2 + dsg2
+    An, dAn = _quot(a * sigma + (1.0 - b) * theta,
+                    da * sigma + a * dsigma - db * theta + (1.0 - b) * dtheta,
+                    torch.where(either, one, theta * c),
+                    torch.where(either, zero, dtheta * c + theta * dc))
+    f, df = _quot((b - 1.0) * sigma + a * theta,
+                  db * sigma + (b - 1.0) * dsigma + da * theta + a * dtheta,
+                  torch.where(either, one, c), torch.where(either, zero, dc))
+    Bn, dBn = _quot(Cn - f, dCn - df, torch.where(th_small, one, t2),
+                    torch.where(th_small, zero, dt2))
+    A = torch.where(sg_small, A0, torch.where(th_small, An_t0, An))
+    B = torch.where(sg_small, B0, torch.where(th_small, Bn_t0, Bn))
+    C = torch.where(sg_small, one, Cn)
+    dA = torch.where(sg_small, dA0, torch.where(th_small, dAn_t0, dAn))
+    dB = torch.where(sg_small, dB0, torch.where(th_small, dBn_t0, dBn))
+    dC = torch.where(sg_small, zero, dCn)
+    return (A, B, C), (dA, dB, dC)
+
+
+def _W_jvp(omega, domega, sigma, dsigma, s, ds):
+    """``_W`` (..., 3, 3) and its derivatives (..., J, 3, 3)."""
+    theta = torch.sqrt((omega * omega).sum(-1) + 1e-32)
+    dtheta = (omega[..., None, :] * domega).sum(-1) / theta[..., None]
+    Om, dOm = skew(omega), skew(domega)
+    (A, B, C), (dA, dB, dC) = _sim3_W_coeffs_jvp(sigma, dsigma, theta, dtheta, s, ds)
+    A, B, C = A[..., None], B[..., None], C[..., None]          # (..., 1, 1)
+    dA, dB, dC = dA[..., None, None], dB[..., None, None], dC[..., None, None]
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
+    Om2 = Om @ Om
+    W = A * Om + B * Om2 + C * eye
+    Omx, A, B = Om[..., None, :, :], A[..., None], B[..., None]
+    dW = (dA * Omx + A * dOm + dB * Om2[..., None, :, :] + B * (dOm @ Omx + Omx @ dOm)
+          + dC * eye)
+    return W, dW
+
+
+def sim3_exp_jvp(v: torch.Tensor, dv: torch.Tensor):
+    """``sim3_exp(v)`` and its tangent along dv (..., J, 7)."""
+    omega, upsilon, sigma = v[..., 0:3], v[..., 3:6], v[..., 6]
+    s = torch.exp(sigma)
+    ds = s[..., None] * dv[..., 6]
+    R, dR = rodrigues2rot_jvp(omega, dv[..., 0:3])
+    W, dW = _W_jvp(omega, dv[..., 0:3], sigma, dv[..., 6], s, ds)
+    t = _mv(W, upsilon)
+    dt = _mv(dW, upsilon[..., None, :]) + _mv(W[..., None, :, :], dv[..., 3:6])
+    return Sim3(s=s, R=R, t=t), Sim3(s=ds, R=dR, t=dt)
+
+
+def compose_jvp(S1: Sim3, d1, S2: Sim3, d2):
+    """``S1.compose(S2)`` and its tangent from theirs; a tangent of None is
+    a constant's."""
+    S = S1.compose(S2)
+    parts = []
+    if d1 is not None:
+        parts.append(Sim3(
+            s=d1.s * S2.s[..., None], R=d1.R @ S2.R[..., None, :, :],
+            t=d1.s[..., None] * _mv(S1.R, S2.t)[..., None, :]
+            + S1.s[..., None, None] * _mv(d1.R, S2.t[..., None, :]) + d1.t))
+    if d2 is not None:
+        parts.append(Sim3(
+            s=S1.s[..., None] * d2.s, R=S1.R[..., None, :, :] @ d2.R,
+            t=S1.s[..., None, None] * _mv(S1.R[..., None, :, :], d2.t)))
+    dS = parts[0] if len(parts) == 1 else Sim3(*(a + b for a, b in zip(*parts)))
+    return S, dS
+
+
+def inverse_jvp(S: Sim3, dS: Sim3):
+    """``S.inverse()`` and its tangent."""
+    Si = S.inverse()
+    dsi = -dS.s / (S.s * S.s)[..., None]
+    dRt = dS.R.transpose(-1, -2)
+    Rt = S.R.transpose(-1, -2)[..., None, :, :]
+    dti = -(dsi[..., None] * _mv(S.R.transpose(-1, -2), S.t)[..., None, :]
+            + Si.s[..., None, None] * (_mv(dRt, S.t[..., None, :]) + _mv(Rt, dS.t)))
+    return Si, Sim3(s=dsi, R=dRt, t=dti)
+
+
+def sim3_log_jvp(S: Sim3, dS: Sim3):
+    """``sim3_log(S)`` (..., 7) and its derivatives along dS (..., J, 7)."""
+    omega, domega = rot2rodrigues_jvp(S.R, dS.R)
+    sigma = torch.log(S.s)
+    dsigma = dS.s / S.s[..., None]
+    W, dW = _W_jvp(omega, domega, sigma, dsigma, S.s, dS.s)
+    Wi = inv3x3(W)
+    upsilon = _mv(Wi, S.t)
+    # d(W^-1) t + W^-1 dt = W^-1 (dt - dW upsilon)
+    dupsilon = _mv(Wi[..., None, :, :], dS.t - _mv(dW, upsilon[..., None, :]))
+    return (torch.cat([omega, upsilon, sigma[..., None]], -1),
+            torch.cat([domega, dupsilon, dsigma[..., None]], -1))
 
 
 # -- Horn's closed-form alignment (cSim3Solver.cpp:286-371) --------------------

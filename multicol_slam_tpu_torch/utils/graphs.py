@@ -11,10 +11,16 @@ key, replayed on every later call with that key.
   arguments) and each tensor leaf's shape, dtype and device. Arguments
   are flattened through tuples (NamedTuples such as ``Features``,
   ``Rig`` and ``BAObservations`` included), lists and dicts.
-- A key's first call runs ``fn`` once on a side stream, the warm-up a
-  capture needs (per-device constants, library handles, the kernel's
-  library), returns those outputs, then captures ``fn`` on the key's
-  static input buffers. Every later call copies its inputs into those
+- The first key of ``fn`` on a device runs ``fn`` once on the pool's
+  side stream, the warm-up a capture needs (per-device constants, the
+  kernel's library, lazily loaded kernels), returns those outputs, then
+  captures ``fn`` on the key's static input buffers. A later key of the
+  same wrapper and device skips the warm-up: it captures at once and
+  returns the outputs of one replay (a replay equals the eager call).
+  Library handles are per thread, and a capture must not create one:
+  before a thread's first capture on a pool's side stream, a small
+  product and solve there make its cuBLAS and cuSOLVER handles.
+  Every later call copies its inputs into those
   buffers, replays the graph on the caller's current stream and returns
   copies of the outputs: the graph's own outputs are overwritten by its
   next replay, and a caller may keep what a call returned (the next
@@ -33,7 +39,9 @@ key, replayed on every later call with that key.
   ``on_launch``; inside a capture the report is recorded with the graph
   and repeated at each of its replays, so launch counts stay true.
 - ``stats()``: graphs held, captures, capture seconds, replays and the
-  pools' bytes, in all and per graphed function.
+  pools' bytes, in all and per graphed function. ``thread_seconds()``:
+  the calling thread's seconds in warm-ups, waiting for another thread's
+  capture, and capturing.
 
 Captures use ``capture_error_mode="thread_local"``: one thread may
 allocate, launch and synchronize on its own stream while another
@@ -71,7 +79,7 @@ class _Counters:
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
-        self.log: list = []   # per capture: function, pool, tensor input shapes, seconds
+        self.log: list = []   # per capture: function, pool, warm-up, thread, shapes, seconds
         self.by_fn: dict = {}  # function -> captures, capture_s, replays
 
 
@@ -91,6 +99,23 @@ def on_launch(fn: Callable[[], None]) -> None:
         hooks.append(fn)
     elif not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
         fn()
+
+
+def thread_seconds() -> dict:
+    """The calling thread's seconds, since it started, in first calls of
+    ``jit``: ``warm_up`` (the eager runs before captures), ``capture_wait``
+    (waiting for another thread's capture to end) and ``capture`` (the
+    captures), wall-clock; ``warm_up_cpu`` and ``capture_cpu``, the
+    thread's CPU time in the first and the last (``time.thread_time``)."""
+    return dict(_seconds())
+
+
+def _seconds() -> dict:
+    spent = getattr(_local, "seconds", None)
+    if spent is None:
+        spent = _local.seconds = dict(warm_up=0.0, warm_up_cpu=0.0, capture_wait=0.0,
+                                        capture=0.0, capture_cpu=0.0)
+    return spent
 
 
 def capturing() -> bool:
@@ -173,13 +198,18 @@ class Pool:
 SHARED = Pool("shared")
 
 
+def _side(device: torch.device, pool: Pool):
+    """(pool handle, side stream) of the pool on a CUDA device."""
+    if device.type != "cuda":
+        raise RuntimeError(f"a CUDA graph needs CUDA tensors, got tensors on {device}")
+    return pool.state(device)
+
+
 def _warm_up(run: Callable[[], list], device: torch.device, pool: Pool) -> list:
     """``run()`` once, eagerly, on the pool's side stream: what a capture
     needs built (constants, handles, the kernel's library) is built here.
     Returns its output leaves, safe to use on the caller's stream."""
-    if device.type != "cuda":
-        raise RuntimeError(f"a CUDA graph needs CUDA tensors, got tensors on {device}")
-    _, side = pool.state(device)
+    _, side = _side(device, pool)
     cur = torch.cuda.current_stream(device)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
@@ -190,10 +220,29 @@ def _warm_up(run: Callable[[], list], device: torch.device, pool: Pool) -> list:
     return outs
 
 
+def _libraries(device: torch.device, side) -> None:
+    """The calling thread's cuBLAS and cuSOLVER handles and their
+    workspace on ``side``, made once per thread and stream by a 3x3
+    product and solve there (a capture that made them would fail)."""
+    ready = getattr(_local, "ready", None)
+    if ready is None:
+        ready = _local.ready = set()
+    if side.cuda_stream in ready:
+        return
+    cur = torch.cuda.current_stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        a = torch.eye(3, device=device)
+        torch.linalg.solve_ex(a @ a, torch.bmm(a[None], a[None])[0, 0])
+    cur.wait_stream(side)
+    ready.add(side.cuda_stream)
+
+
 def _capture(run: Callable[[], list], device: torch.device, pool: Pool):
     """Capture ``run()`` into a graph of the pool on the device. Returns
     (replay, the graph's output leaves)."""
-    handle, side = pool.state(device)
+    handle, side = _side(device, pool)
+    _libraries(device, side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=handle, stream=side,
                           capture_error_mode="thread_local"):
@@ -225,6 +274,7 @@ class jit:
         self.captures = 0
         self.replays = 0
         self._graphs: dict = {}
+        self._warmed: set = set()     # devices this wrapper has run a warm-up on
         _caches.add(self)
 
     def __len__(self) -> int:
@@ -239,17 +289,17 @@ class jit:
             return self._first_call(key, spec, leaves)
         for buf, x in zip(entry.inputs, leaves):
             buf.copy_(x)
-        entry.replay()
-        for hook in entry.hooks:
-            hook()
         self.replays += 1
         with _lock:
             _counters.replays += 1
             _fn_counters(self.name)["replays"] += 1
-        return _unflatten(entry.out_spec, [t.clone() for t in entry.outputs])
+        return _replay(entry)
 
     def _first_call(self, key, spec, leaves):
+        """Warm-up (a first key on the device) and capture; returns the
+        warm-up's outputs, or with no warm-up those of one replay."""
         device = leaves[0].device if leaves else torch.device("cpu")
+        warm = device not in self._warmed
         out_spec = []
 
         def run_on(xs):
@@ -261,12 +311,17 @@ class jit:
                 return outs
             return run
 
-        result = _warm_up(run_on(leaves), device, self.pool)
-        spec_out = out_spec[0]
+        spent = _seconds()
+        t0, c0 = time.perf_counter(), time.thread_time()
+        result = _warm_up(run_on(leaves), device, self.pool) if warm else None
         inputs = [x.clone(memory_format=torch.contiguous_format) for x in leaves]
         hooks: list = []
+        t1 = time.perf_counter()
+        spent["warm_up"] += t1 - t0
+        spent["warm_up_cpu"] += time.thread_time() - c0
         with _capture_lock:
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            spent["capture_wait"] += t0 - t1
             _local.hooks = hooks
             collecting = gc.isenabled()
             gc.disable()
@@ -281,6 +336,8 @@ class jit:
                 if collecting:
                     gc.enable()
             seconds = time.perf_counter() - t0
+            spent["capture"] += seconds
+            spent["capture_cpu"] += time.thread_time() - c0
         self.captures += 1
         with _lock:
             _counters.captures += 1
@@ -289,14 +346,28 @@ class jit:
             c["captures"] += 1
             c["capture_s"] += seconds
             _counters.log.append(dict(fn=self.name, pool=self.pool.name, seconds=seconds,
+                                      warm_up=warm, thread=threading.current_thread().name,
                                       shapes=[tuple(t.shape) for t in leaves]))
-        self._graphs[key] = _Entry(replay, inputs, outputs, spec_out, hooks)
-        return _unflatten(spec_out, result)
+        entry = _Entry(replay, inputs, outputs, out_spec[0], hooks)
+        self._graphs[key] = entry
+        if not warm:
+            return _replay(entry)
+        self._warmed.add(device)
+        return _unflatten(entry.out_spec, result)
 
     def clear(self):
         """Drop this function's graphs (their pool memory returns to the
         shared pool)."""
         self._graphs.clear()
+
+
+def _replay(entry: _Entry):
+    """Replay a graph on the caller's stream, repeat its launch reports,
+    and return copies of its outputs."""
+    entry.replay()
+    for hook in entry.hooks:
+        hook()
+    return _unflatten(entry.out_spec, [t.clone() for t in entry.outputs])
 
 
 def _check_outputs(name, spec):
@@ -346,8 +417,8 @@ def stats() -> dict:
     replays, the pools' bytes on the card (``pool_bytes`` in all,
     ``pools`` by name), per graphed function (``by_fn``: captures,
     capture seconds, replays, graphs held and its pool's name) and the
-    log of captures (each one's function, pool, tensor input shapes and
-    seconds)."""
+    log of captures (each one's function, pool, whether a warm-up ran
+    before it, the capturing thread, tensor input shapes and seconds)."""
     with _lock:
         caches = list(_caches)
         by_fn = {k: dict(v, graphs_held=0, pool=None) for k, v in _counters.by_fn.items()}

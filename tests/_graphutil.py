@@ -65,18 +65,24 @@ class HostReads(TorchFunctionMode):
 
 
 class StandIn:
-    """A capture stand-in for the CPU tests. "capture" runs
-    the function once on the static buffers and keeps its outputs;
-    "replay" runs it again on the buffers and writes the results into
-    those outputs, as a graph's replay overwrites its static outputs.
-    While it replays, a launch report goes nowhere: a replay runs no
-    Python, and the graph repeats the reports recorded at its capture."""
+    """A capture stand-in for the CPU tests. "warm-up" runs the function
+    on the call's inputs; "capture" runs it once on the static buffers
+    and keeps its outputs; "replay" runs it again on the buffers and
+    writes the results into those outputs, as a graph's replay overwrites
+    its static outputs. While it replays, a launch report goes nowhere: a
+    replay runs no Python, and the graph repeats the reports recorded at
+    its capture."""
 
     def __init__(self, monkeypatch):
+        self.warm_ups = 0
         self.captures = 0
         self.replays = 0
-        monkeypatch.setattr(graphs, "_warm_up", lambda run, device, pool: run())
+        monkeypatch.setattr(graphs, "_warm_up", self.warm_up)
         monkeypatch.setattr(graphs, "_capture", self.capture)
+
+    def warm_up(self, run, device, pool):
+        self.warm_ups += 1
+        return run()
 
     def capture(self, run, device, pool):
         outs = run()

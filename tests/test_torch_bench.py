@@ -22,7 +22,11 @@ from multicol_slam_tpu_torch.models import tracking
 SYSTEM_KEYS = {"frames", "chunk", "system_fps", "frame_ms", "working_frac",
                "working_frac_eval", "ate_m", "n_keyframes", "n_points", "mapping_ms",
                "mapping_passes", "keyframes_refused", "passes_interrupted", "frame_paths",
-               "graphs", "pools_mib", "stage_s"}
+               "graphs", "pools_mib", "stage_s",
+               # the slowest pass's split, the card's idle share and the
+               # run's captures (the async mapper's capture stall)
+               "slowest_pass_split_ms", "device_idle_share", "utilization_samples",
+               "captures"}
 STAGE_KEYS = {
     "headline": {"scan_frames", "reps", "scan_ms", "ms_per_frame", "inliers_median",
                  "map_keyframes", "map_points", "local_map_bucket", "scan_body", "stage_s"},

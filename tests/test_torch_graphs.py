@@ -173,7 +173,10 @@ def test_one_capture_per_key(monkeypatch):
     f(x.double(), toy_feats(8, 0), 2.0, 1)             # a dtype
     assert stand.captures == 6 and len(f) == 6
     f(torch.ones(512) * 5, toy_feats(8, 3), 2.0, 1)
-    assert stand.captures == 6 and stand.replays == 3
+    # one warm-up, the first key's; each later key captured at once and
+    # its first call replayed the graph
+    assert stand.captures == 6 and f.replays == 3
+    assert stand.warm_ups == 1 and stand.replays == 3 + 5
 
 
 def test_each_call_returns_its_own_result_and_kept_outputs_stay(monkeypatch):
@@ -279,7 +282,8 @@ def test_graphed_step_and_scan_body_equal_eager(monkeypatch):
                pt_mask=pad(st["pt_mask"], 0))
     a, kw = step_args(slam, big, frames[1])
     assert_identical(step(*a, **kw)[1:7], tracking.working_track_step(*a, **kw)[1:7])
-    assert stand.captures == 2
+    # the padded map's key: no warm-up, its first call one replay
+    assert stand.captures == 2 and stand.warm_ups == 1 and stand.replays == 3
 
     body = graphs.jit(tracking.working_scan_body)
     a, kw = body_args(slam, st, None)
@@ -287,7 +291,7 @@ def test_graphed_step_and_scan_body_equal_eager(monkeypatch):
         a[0], a[1], frames[1:4], st["mt0"], st["V0"], st["last"], st["slot_X0"],
         st["slot_lp0"], st["slot_has0"], *a[4:], body=b, **kw)
     assert_identical(run(body), run(tracking.working_scan_body))
-    assert stand.captures == 3 and stand.replays == 4
+    assert stand.captures == 3 and stand.replays == 5
 
 
 def test_graphed_step_matches_jax(monkeypatch):
