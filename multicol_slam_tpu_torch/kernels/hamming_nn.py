@@ -62,7 +62,7 @@ def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = os.path.join(cuda_home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the Hamming-NN kernel needs the "
+        raise RuntimeError("nvcc not found: the kernels need the "
                            "CUDA toolkit to build")
     return path
 
@@ -79,25 +79,32 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def _build_and_load() -> ctypes.CDLL:
-    with open(SOURCE, "rb") as f:
+def build(source: str, stem: str) -> str:
+    """The shared library of a kernel source, built with ``nvcc`` into
+    ``BUILD_DIR`` once per version of the source and flags; its path."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:12]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"libhamming_nn_{digest}.so")
+    so = os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
     if not os.path.exists(so):
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError("nvcc failed to build hamming_nn.cu:\n"
+                raise RuntimeError(f"nvcc failed to build {os.path.basename(source)}:\n"
                                    + proc.stdout + proc.stderr)
             os.replace(tmp, so)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
+    return so
+
+
+def _build_and_load() -> ctypes.CDLL:
+    so = build(SOURCE, "libhamming_nn")
     lib = ctypes.CDLL(so)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.hamming_nn_launch.argtypes = [ptr] * 3 + [i64] + [ptr] * 5 + [i32] * 5 + [ptr]

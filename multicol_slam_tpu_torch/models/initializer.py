@@ -22,6 +22,7 @@ from ..ops import ransac
 from ..ops.camera import world_to_img
 from ..ops.geometry import hom2cayley
 from ..ops.rig import Rig
+from ..utils import graphs
 from . import matcher
 from .extractor import Features
 
@@ -54,8 +55,8 @@ def nanmedian(x: torch.Tensor) -> torch.Tensor:
     lo, hi = torch.floor(q), torch.ceil(q)
     w_hi = q - lo
     last = x.shape[0] - 1
-    lo_v = s[torch.clamp(lo, 0, last).long()]
-    hi_v = s[torch.clamp(hi, 0, last).long()]
+    lo_v = s.index_select(0, torch.clamp(lo, 0, last).long().reshape(1))[0]
+    hi_v = s.index_select(0, torch.clamp(hi, 0, last).long().reshape(1))[0]
     med = lo_v * (1.0 - w_hi) + hi_v * w_hi
     return torch.where(n > 0, med, torch.full_like(med, float("nan")))
 
@@ -64,12 +65,14 @@ def initialize_device(gen: torch.Generator, rig: Rig, f_ref: Features,
                       f_cur: Features, params: matcher.MatchParams,
                       n_hyps: int = 256) -> InitCandidate:
     """Matching, RANSAC and CheckRT for every camera. RANSAC draws from
-    ``gen`` camera by camera, in camera order."""
+    ``gen`` camera by camera, in camera order. On the card the tracker
+    replays this as a CUDA graph, drawing from ``gen`` as registered with
+    it (``utils/graphs.py``)."""
     match_idx = matcher.search_for_initialization(f_ref, f_cur, params)
     C = match_idx.shape[0]
-    dt = f_ref.ray.dtype
-    cos_th = torch.cos(torch.deg2rad(torch.tensor(MIN_PARALLAX_DEG, dtype=dt,
-                                                  device=f_ref.ray.device)))
+    dt, dev = f_ref.ray.dtype, f_ref.ray.device
+    cos_th = graphs.constant("init_cos_parallax", dev, dt, lambda: torch.cos(
+        torch.deg2rad(torch.tensor(MIN_PARALLAX_DEG, dtype=dt, device=dev))))
     outs = []
     for c in range(C):
         m = match_idx[c]
@@ -80,8 +83,8 @@ def initialize_device(gen: torch.Generator, rig: Rig, f_ref: Features,
                                             n_hyps=n_hyps)
         Rs, ts = ransac.decompose_essential(E)
         counts, Xs = ransac.cheirality_counts(Rs, ts, v1, v2, inl)
-        b = torch.argmax(counts)
-        R12, t12, X = Rs[b], ts[b], Xs[b]
+        b = torch.argmax(counts).reshape(1)
+        R12, t12, X = (a.index_select(0, b)[0] for a in (Rs, ts, Xs))
 
         cr = torch.linalg.cross(v1, v2 @ R12.T)
         norms = torch.linalg.norm(cr, dim=-1)

@@ -31,6 +31,13 @@ padded so that a graph's key comes back: the Sim3 pairs and the
 projected landmarks to ``coarse_bucket``s, the essential graph's edges
 and keyframes too. The Sim3 RANSAC stays eager, as the JAX package's
 ``vmap`` of it stays outside ``jit``.
+
+The BoW transform (the JAX package's jitted ``_transform_impl``) runs on
+two threads: a keyframe's on the closer's (``kf_transform``, a graph in
+the closer's pool on the card), a relocalizing frame's on the tracker's
+(``frame_transform``, which the system hands over from the tracker, a
+graph of the tracker's pool), since graphs of one pool replay one at a
+time. ``bow_match_frame`` transforms the frame once per relocalization.
 """
 
 from __future__ import annotations
@@ -52,7 +59,8 @@ from .keyframe_database import KeyFrameDatabase
 from .local_mapping import coarse_bucket
 from .map import MapStore
 from .tracking import fetch, frustum_check, to_device
-from .vocabulary import Vocabulary, bow_score_l1, bow_vector, transform_words
+from . import vocabulary
+from .vocabulary import Vocabulary, bow_score_l1, bow_vector
 
 MIN_KFS_BETWEEN_LOOPS = 10     # cLoopClosing.cpp:125
 CONSISTENCY_TH = 3             # 3 consecutive consistent detections
@@ -118,6 +126,10 @@ class LoopCloser:
     # closer's own if None) and a (graphed) bundle_adjustment to share
     pool: object = None
     bundle_adjust: object = None
+    # the tracker's BoW transform of a frame (vocabulary.transform_words'
+    # signature; its graph on the card), for bow_match_frame; the
+    # closer's own transform if None
+    frame_transform: object = None
 
     def __post_init__(self):
         self.dev = self.rig.M_c.device
@@ -137,6 +149,11 @@ class LoopCloser:
                            for name, mod in UNITS.items()}
             if self.bundle_adjust is not None:
                 self.graphs["bundle_adjustment"] = self.bundle_adjust
+        # a keyframe's BoW transform, on the closer's thread: a graph of its
+        # pool on the card, vocabulary.transform_words at the call on the CPU
+        self.kf_transform = (graphs.jit(vocabulary.transform_words, pool)
+                             if self.dev.type == "cuda" else None)
+        self._frame_nodes = None     # (features, vocabulary, nodes) of the last frame
 
     def unit(self, name: str):
         """The jitted unit ``name`` of ``UNITS``: its graph on the card; on
@@ -156,6 +173,7 @@ class LoopCloser:
         self.kf_nodes.clear()
         self.consistent_groups.clear()
         self.last_loop_kf = -MIN_KFS_BETWEEN_LOOPS
+        self._frame_nodes = None
 
     def set_vocabulary(self, voc: Vocabulary):
         """Swap in a (re)trained vocabulary and rebuild the BoW caches and
@@ -182,19 +200,23 @@ class LoopCloser:
 
     # ------------------------------------------------------------------
 
-    def _transform(self, feats):
+    def _transform(self, feats, transform=None):
         """(word, node at depth 1) per slot of a Features batch, on its
-        device. Words score at leaf resolution; SearchByBoW gates on the
-        depth-1 nodes (levelsup = levels - 1), since a vocabulary trained
-        on the map's own frames quantizes deeper nodes unstably across a
-        loop's change of viewpoint."""
+        device, through ``transform`` (the closer's own by default).
+        Words score at leaf resolution; SearchByBoW gates on the depth-1
+        nodes (levelsup = levels - 1), since a vocabulary trained on the
+        map's own frames quantizes deeper nodes unstably across a loop's
+        change of viewpoint."""
+        transform = transform or self.kf_transform or vocabulary.transform_words
         W = feats.desc.shape[-1]
-        return transform_words(self.voc, feats.desc.reshape(-1, W),
-                               feats.valid.reshape(-1), levelsup=self.voc.levels - 1)
+        return transform(self.voc, feats.desc.reshape(-1, W),
+                         feats.valid.reshape(-1), levelsup=self.voc.levels - 1)
 
-    def _bow_of_kf(self, kf: int):
+    def _bow_of_kf(self, kf: int, transform=None):
+        """A keyframe's (words, depth-1 nodes) on the host, cached; computed
+        through ``transform`` (the caller thread's) when not cached yet."""
         if kf not in self.kf_words:
-            words, nodes = fetch(*self._transform(self.map.kf_features[kf]))
+            words, nodes = fetch(*self._transform(self.map.kf_features[kf], transform))
             self.kf_words[kf] = words
             self.kf_nodes[kf] = nodes
         return self.kf_words[kf], self.kf_nodes[kf]
@@ -287,10 +309,16 @@ class LoopCloser:
         f1 = m.kf_features[kf]
         if f1 is None:
             return []
-        _, nodes1 = self._bow_of_kf(kf)
+        _, nodes1 = self._bow_of_kf(kf, self.frame_transform)
         K = m.kf_pt.shape[2]
         W = f1.desc.shape[-1]
-        _, nodes2 = self._transform(feats)
+        # the frame's nodes once per relocalization: every candidate
+        # keyframe is matched against the same features
+        fn = self._frame_nodes
+        if fn is None or fn[0] is not feats or fn[1] is not self.voc:
+            fn = self._frame_nodes = (feats, self.voc,
+                                      self._transform(feats, self.frame_transform)[1])
+        nodes2 = fn[2]
         match = fetch(matcher.search_by_bow(
             f1.desc.reshape(-1, W), self._to_dev((m.kf_pt[kf] >= 0).reshape(-1)),
             self._to_dev(nodes1), feats.desc.reshape(-1, W), feats.valid.reshape(-1),

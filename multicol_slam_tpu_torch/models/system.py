@@ -244,7 +244,8 @@ class MultiColSLAM:
                         fix_scale=True, fuser=self.mapper,
                         scale_factor=self.settings.scale_factor,
                         n_levels=self.settings.n_levels, pool=self.mapper.pool,
-                        bundle_adjust=self.mapper._bundle_adjust)
+                        bundle_adjust=self.mapper._bundle_adjust,
+                        frame_transform=self.tracker.bow_transform)
         # the tracker reads the vocabulary on its own stream: the copy to
         # the device lands before the closer is published
         self._stream_sync()
@@ -254,6 +255,21 @@ class MultiColSLAM:
         self.map.on_kf_removed = self.loop_closer.forget_keyframe
         self.tracker.reloc_candidates_fn = self._reloc_candidates
         self.tracker.reloc_bow_match_fn = self.loop_closer.bow_match_frame
+        self.tracker.reloc_transform_ahead_fn = self._reloc_transforms
+
+    def _frame_words(self, feats: Features):
+        """A frame's BoW words (and nodes two levels up) through the
+        tracker's transform (its graph on the card)."""
+        W = feats.desc.shape[-1]
+        return self.tracker.bow_transform(self.loop_closer.voc, feats.desc.reshape(-1, W),
+                                          feats.valid.reshape(-1))
+
+    def _reloc_transforms(self, feats: Features):
+        """Both BoW transforms a relocalization runs on a frame: the
+        candidates' words and SearchByBoW's nodes (the tracker's
+        capture-ahead)."""
+        self._frame_words(feats)
+        self.loop_closer._transform(feats, self.tracker.bow_transform)
 
     def _reloc_candidates(self, feats: Features) -> list[int]:
         """BoW relocalization candidates (DetectRelocalisationCandidates,
@@ -261,9 +277,7 @@ class MultiColSLAM:
         lc = self.loop_closer
         if lc is None or not lc.db.kf_bow:
             return []
-        W = feats.desc.shape[-1]
-        words, _ = vocab_mod.transform_words(lc.voc, feats.desc.reshape(-1, W),
-                                             feats.valid.reshape(-1))
+        words, _ = self._frame_words(feats)
         return lc.db.detect_reloc_candidates(vocab_mod.bow_vector(lc.voc, fetch(words)[0]),
                                              self.map)
 

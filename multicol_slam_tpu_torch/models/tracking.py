@@ -19,11 +19,21 @@ carry and stacked outputs as the JAX package's ``lax.scan``;
 ``Tracker.track_chunk`` runs it over a chunk of steady-state frames and
 replays the bookkeeping from one fetch.
 
-On the card the tracker runs ``working_track_step`` and
-``working_scan_body`` as CUDA graphs (``utils/graphs.py``), as the JAX
-package runs them compiled: one capture per set of static arguments and
-input shapes (the local map's bucket ``cap`` among them), one replay a
-frame. On the CPU they run eagerly.
+On the card the tracker runs every device unit of its thread as a CUDA
+graph (``utils/graphs.py``) in the shared pool, as the JAX package runs
+them compiled: one capture per set of static arguments and input shapes
+(the local map's bucket ``cap`` among them), one replay a call. Besides
+``working_track_step`` and ``working_scan_body``: the standalone
+extraction (``extract``, ``extract_init``), ``motion_track_step``,
+``extract_motion_track_step``, ``window_search``, ``pose_optimization``,
+``local_map_track_step``, the relocalization's projection round
+(``reloc_projection_round``), ``initializer.initialize_device`` and
+``ransac.ransac_gpnp`` (drawing from the tracker's generator, registered
+with their graphs) and the BoW transform of a frame. The pose LM, the GP3P
+RANSAC and the projection round pad to a fixed C * K rows, so one key
+serves every call; ``Tracker.capture_ahead`` captures the keys of the
+frames after the bootstrap and of a relocalization on the bootstrap's
+frame. On the CPU the functions run eagerly.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from . import initializer, matcher
 from . import optimizer as opt
 from .extractor import Features
 from .map import MapStore
+from .vocabulary import transform_words
 
 
 class TrackState(enum.Enum):
@@ -139,6 +150,26 @@ def frustum_check(rig: Rig, mt_min: torch.Tensor, X: torch.Tensor,
     level = torch.ceil(torch.log(ratio) / log_sf).to(torch.int32)
     level = torch.clamp(level, 0, n_levels - 1)
     return uv, ok, level, view_cos
+
+
+def reloc_projection_round(rig: Rig, mt: torch.Tensor, X: torch.Tensor,
+                           normal: torch.Tensor, min_dist: torch.Tensor,
+                           max_dist: torch.Tensor, cand_ok: torch.Tensor,
+                           cur: Features, cur_has_pt: torch.Tensor,
+                           pt_desc: torch.Tensor, pt_mask: torch.Tensor,
+                           params: matcher.MatchParams, th: float, orb_dist: int,
+                           n_levels: int, scale_factor: float) -> torch.Tensor:
+    """The relocalization's projection round (cORBmatcher.cpp:2120-2263):
+    candidate landmarks X (P, 3), those with ``cand_ok`` (the real rows of
+    a padded batch), checked against the frustum at the refined pose with
+    a 4x distance slack, then matched into the frame's free slots
+    (``matcher.reloc_projection_match``). Returns (C, P) slot indices."""
+    uv, ok, lvl, _ = frustum_check(rig, mt, X, normal, min_dist, max_dist,
+                                   n_levels=n_levels, scale_factor=scale_factor,
+                                   dist_slack=4.0)
+    ok = ok & cand_ok[None, :]
+    return matcher.reloc_projection_match(cur, cur_has_pt, pt_desc, pt_mask, uv, ok,
+                                          lvl, params, th=th, orb_dist=orb_dist)
 
 
 def _flat_obs(C: int, K: int, device):
@@ -396,6 +427,13 @@ def working_scan_chunk(extract_fn, rig: Rig, images: torch.Tensor,
     return carry, stacked
 
 
+# the Tracker's device units (attribute names): graphs.jit on the card
+UNIT_NAMES = ("_working_step", "_scan_body", "_extract_unit", "_extract_init_unit",
+              "_motion_step", "_extract_motion_step", "_window_search", "_pose_opt",
+              "_local_map_step", "_reloc_projection", "_init_device", "_gpnp",
+              "bow_transform")
+
+
 def fetch(*tensors):
     """One fetch of a stage's device outputs as numpy arrays."""
     return tuple(t.detach().cpu().numpy() for t in tensors)
@@ -429,13 +467,28 @@ class Tracker:
             desc_bytes=cfg.desc_bytes, masked=cfg.masked,
             scale_factor=cfg.scale_factor)
         self.state = TrackState.NO_IMAGES_YET
-        # the steady-state steps: CUDA graphs on the card (the JAX
-        # package's jax.jit), eager on the CPU
-        on_card = self.dev.type == "cuda"
-        self._working_step = (graphs.jit(working_track_step) if on_card
-                              else working_track_step)
-        self._scan_body = graphs.jit(working_scan_body) if on_card else working_scan_body
-        # RANSAC's sampling stream (the JAX package's PRNGKey(42))
+        # the device units of the tracker's thread: CUDA graphs of the
+        # shared pool on the card (the JAX package's jax.jit), eager on the
+        # CPU. The fused step and the scan body take the raw extractor as a
+        # static argument; the standalone extraction has graphs of its own
+        unit = graphs.jit if self.dev.type == "cuda" else (lambda f: f)
+        self._working_step = unit(working_track_step)
+        self._scan_body = unit(working_scan_body)
+        self._extract_unit = unit(self.extract)
+        self._extract_init_unit = unit(self.extract_init)
+        self._motion_step = unit(motion_track_step)
+        self._extract_motion_step = unit(extract_motion_track_step)
+        self._window_search = unit(matcher.window_search)
+        self._pose_opt = unit(opt.pose_optimization)
+        self._local_map_step = unit(local_map_track_step)
+        self._reloc_projection = unit(reloc_projection_round)
+        self._init_device = unit(initializer.initialize_device)
+        self._gpnp = unit(ransac.ransac_gpnp)
+        # the BoW transform of a frame (relocalization candidates and
+        # SearchByBoW); the system hands it to the loop closer
+        self.bow_transform = unit(transform_words)
+        # RANSAC's sampling stream (the JAX package's PRNGKey(42)); the
+        # graphed RANSAC units register it
         self.gen = torch.Generator(device=self.dev).manual_seed(42)
         self._M_c_np = rig.M_c.detach().cpu().numpy().astype(np.float64)
 
@@ -485,6 +538,13 @@ class Tracker:
         self.on_reset = None               # fn(): reset fan-out
         self.reloc_candidates_fn = None    # fn(Features) -> [kf] (BoW)
         self.reloc_bow_match_fn = None     # fn(kf, Features) -> [(pt, c, s)]
+        # fn(Features): the BoW transforms of a relocalizing frame, run on
+        # a frame's features by capture_ahead (wired with the loop closer)
+        self.reloc_transform_ahead_fn = None
+        # what capture_ahead captured, and the units that captured on a
+        # later frame: (frame id, unit name, captures)
+        self.captured_ahead: list[str] = []
+        self.late_captures: list[tuple[int, str, int]] = []
         # the next frame relocalizes (the loop closer sets it after moving
         # the map, cLoopClosing.cpp:575)
         self.force_reloc = False
@@ -512,10 +572,30 @@ class Tracker:
         if self.dev.type == "cuda":
             torch.cuda.current_stream(self.dev).synchronize()
 
+    def units(self) -> dict:
+        """The tracker's device units by attribute name (graphs on the card)."""
+        return {name: getattr(self, name) for name in UNIT_NAMES}
+
+    def _unit_captures(self) -> dict:
+        return {name: u.captures for name, u in self.units().items()
+                if isinstance(u, graphs.jit)}
+
     def track(self, images, timestamp: float) -> Optional[np.ndarray]:
         """Main entry (cTracking::GrabImageSet + Track). ``images``:
         (C, H, W) uint8 or float. Returns the estimated M_t (4x4) or None
-        while not tracking."""
+        while not tracking. After the capture-ahead, a unit that captures a
+        graph on a frame is noted in ``late_captures``."""
+        before, ahead = self._unit_captures(), bool(self.captured_ahead)
+        try:
+            return self._track(images, timestamp)
+        finally:
+            if ahead:
+                after = self._unit_captures()
+                self.late_captures += [(self.frame_id, name, after[name] - n)
+                                       for name, n in before.items()
+                                       if after.get(name, n) > n]
+
+    def _track(self, images, timestamp: float) -> Optional[np.ndarray]:
         images = torch.as_tensor(images, device=self.dev)
         self.frame_id += 1
         C, K = self.map.kf_pt.shape[1], self.map.kf_pt.shape[2]
@@ -554,9 +634,9 @@ class Tracker:
                 if self.state in (TrackState.NO_IMAGES_YET,
                                   TrackState.NOT_INITIALIZED,
                                   TrackState.INITIALIZING):
-                    feats = self.extract_init(images)
+                    feats = self._extract_init_unit(images)
                 else:
-                    feats = self.extract(images)
+                    feats = self._extract_unit(images)
                 self._sync()
             self.cur_feats = feats
 
@@ -569,6 +649,8 @@ class Tracker:
         elif self.state == TrackState.INITIALIZING:
             self.frame_path.append("init")
             self._try_initialize()
+            if self.state == TrackState.WORKING:
+                self.capture_ahead(images)
         else:
             ok = False
             fused_done = False
@@ -648,8 +730,8 @@ class Tracker:
         if int(feats.valid.sum()) < initializer.MIN_MATCHES:
             self.state = TrackState.NOT_INITIALIZED
             return
-        cand = initializer.initialize_device(
-            self.gen, self.rig, self.init_ref_feats, feats, self.params)
+        cand = self._init_device(self.gen, self.rig, self.init_ref_feats, feats,
+                                 self.params)
         cand = initializer.InitCandidate(*fetch(*cand))
         if int((cand.match_idx >= 0).sum()) < initializer.MIN_MATCHES:
             self.state = TrackState.NOT_INITIALIZED
@@ -693,6 +775,56 @@ class Tracker:
             self.on_new_keyframe(kf1)
         if self.on_init_keyframes or self.on_new_keyframe:
             self.cur_mt = m.kf_pose[kf1].copy()
+
+    def capture_ahead(self, images):
+        """On the card, once, on the frame that built the initial map (after
+        its mapping passes): capture the keys the next frames and a
+        relocalization need, on this frame's own images, features and
+        associations, the results discarded: the standalone extraction,
+        the previous-frame window search, the pose LM (C * K rows), the
+        local-map step at the tracking window and at the second chance's
+        (the current snapshot's cap), the GP3P RANSAC and the projection
+        round (C * K rows) and, when a loop closer is wired, the frame's
+        BoW transforms. ``gen``'s state is restored after it, so the run
+        draws what an eager run draws. A key that depends on the map's size
+        (a later local map's cap) or a retrained vocabulary can still
+        capture on a later frame (``late_captures``)."""
+        if not isinstance(self._pose_opt, graphs.jit) or self.captured_ahead:
+            return
+        before = self._unit_captures()
+        state = self.gen.get_state()
+        m = self.map
+        try:
+            self._extract_unit(images)
+            has = self.cur_pt >= 0
+            has_t = self._to_dev(has)
+            self._window_search(self.cur_feats, self.cur_feats, has_t, self.params,
+                                window=200.0, nn_ratio=0.9)
+            cam_idx, slot_idx = np.nonzero(has)
+            pids = self.cur_pt[cam_idx, slot_idx]
+            self._pose_opt(*self._pose_lm_inputs(self.cur_mt, cam_idx, slot_idx, pids))
+            self._gpnp(self.gen, *self._gpnp_inputs(cam_idx, slot_idx, m.pt_pos[pids]),
+                       n_hyps=256)
+            self._reloc_projection(*self._projection_inputs(np.unique(pids)))
+            snap = self._local_map_snapshot()
+            if snap is not None:
+                local_pts, cap, arrs = snap
+                slot_X = np.zeros(self.cur_pt.shape + (3,), np.float32)
+                slot_X[has] = m.pt_pos[self.cur_pt[has]]
+                cand_ok = self._to_dev(np.arange(cap) < len(local_pts))
+                for th in (self.cfg.local_map_th, 10.0):
+                    self._local_map_step(
+                        self.rig, self._to_dev(self.cur_mt, torch.float32), arrs["X"],
+                        arrs["normal"], arrs["mind"], arrs["maxd"], cand_ok, arrs["desc"],
+                        arrs["dmask"], self.cur_feats, has_t, self._to_dev(slot_X), has_t,
+                        self.params, th=th, n_levels=self.cfg.n_levels,
+                        scale_factor=self.cfg.scale_factor)
+            if self.reloc_transform_ahead_fn is not None:
+                self.reloc_transform_ahead_fn(self.cur_feats)
+        finally:
+            self.gen.set_state(state)
+        after = self._unit_captures()
+        self.captured_ahead = [name for name, n in before.items() if after[name] > n]
 
     # ------------------------------------------------------------------
     # frame-to-frame tracking
@@ -746,14 +878,14 @@ class Tracker:
         pts, has = gathered
         self._dispatch_n += 1
         if images is not None:
-            out = extract_motion_track_step(
+            out = self._extract_motion_step(
                 self.extract, self.rig, images, self._to_dev(mt_pred),
                 self._to_dev(pts), self._to_dev(has), self.last_feats,
                 self.params, th=self.cfg.motion_th)
             self.cur_feats = out[0]
             out = out[1:]
         else:
-            out = motion_track_step(
+            out = self._motion_step(
                 self.rig, self._to_dev(mt_pred), self._to_dev(pts),
                 self._to_dev(has), self.cur_feats, self.last_feats,
                 self._to_dev(self.cur_pt >= 0), self.params,
@@ -980,14 +1112,14 @@ class Tracker:
             return False
         self._dispatch_n += 1
         has_t = self._to_dev(has)
-        match = fetch(matcher.window_search(
+        match = fetch(self._window_search(
             self.last_feats, self.cur_feats, has_t, self.params,
             window=200.0, nn_ratio=0.9))[0]
         n = int((match >= 0).sum())
         if n < 20:
             # second round with a larger window (cTracking.cpp:735-760)
             self._dispatch_n += 1
-            match = fetch(matcher.window_search(
+            match = fetch(self._window_search(
                 self.last_feats, self.cur_feats, has_t, self.params,
                 window=400.0, nn_ratio=0.95))[0]
             n = int((match >= 0).sum())
@@ -1000,7 +1132,9 @@ class Tracker:
                                            self.cfg.min_inliers_track)
 
     def _optimize_current_pose(self, mt_init, min_inliers: int) -> bool:
-        """Pose-only LM over the current frame's associations."""
+        """Pose-only LM over the current frame's associations, padded to
+        the frame's C * K slots (an association takes a slot, so one key
+        serves every call; padding rows are invalid)."""
         self.cur_pt = self.map.resolve_points(self.cur_pt)
         has = self.cur_pt >= 0
         cam_idx, slot_idx = np.nonzero(has)
@@ -1011,7 +1145,23 @@ class Tracker:
         n = len(pt_ids)
         if n < min_inliers:
             return False
-        cap = bucket(n, 128)
+        self._dispatch_n += 1
+        mt, inlier, n_in, n_it = fetch(*self._pose_opt(
+            *self._pose_lm_inputs(mt_init, cam_idx, slot_idx, pt_ids)))
+        n_in = int(n_in)
+        self.lm_iters.append(int(n_it))
+        inlier = inlier[:n]
+        # mark outliers on the frame (cOptimizer.cpp:414-438)
+        self.cur_outlier[cam_idx[~inlier], slot_idx[~inlier]] = True
+        self.cur_mt = mt
+        self.inlier_ratios.append(n_in / max(n, 1))
+        return n_in >= min_inliers
+
+    def _pose_lm_inputs(self, mt_init, cam_idx, slot_idx, pt_ids):
+        """``pose_optimization``'s arguments for the frame slots (cam_idx,
+        slot_idx) observing landmarks pt_ids, padded to the frame's C * K
+        slots (padding rows invalid, unit weight)."""
+        n, cap = len(pt_ids), self.cur_pt.size
         uv = np.zeros((cap, 2), np.float32)
         xy, lvl = fetch(self.cur_feats.xy, self.cur_feats.level)
         uv[:n] = xy[cam_idx, slot_idx]
@@ -1021,24 +1171,12 @@ class Tracker:
         cams[:n] = cam_idx
         X = np.zeros((cap, 3), np.float32)
         X[:n] = self.map.pt_pos[pt_ids]
-        valid = np.zeros(cap, bool)
-        valid[:n] = True
         obs = opt.BAObservations(
             uv=self._to_dev(uv), kf=self._to_dev(np.zeros(cap, np.int32)),
             cam=self._to_dev(cams), pt=self._to_dev(np.arange(cap, dtype=np.int32)),
-            inv_sigma2=self._to_dev(inv_sigma2), valid=self._to_dev(valid))
-        self._dispatch_n += 1
-        mt, inlier, n_in, n_it = fetch(*opt.pose_optimization(
-            self.rig, self._to_dev(np.asarray(mt_init, np.float64)), obs,
-            self._to_dev(X)))
-        n_in = int(n_in)
-        self.lm_iters.append(int(n_it))
-        inlier = inlier[:n]
-        # mark outliers on the frame (cOptimizer.cpp:414-438)
-        self.cur_outlier[cam_idx[~inlier], slot_idx[~inlier]] = True
-        self.cur_mt = mt
-        self.inlier_ratios.append(n_in / max(n, 1))
-        return n_in >= min_inliers
+            inv_sigma2=self._to_dev(inv_sigma2), valid=self._to_dev(np.arange(cap) < n))
+        return (self.rig, self._to_dev(np.asarray(mt_init, np.float64)), obs,
+                self._to_dev(X))
 
     # ------------------------------------------------------------------
     # local map tracking
@@ -1144,7 +1282,7 @@ class Tracker:
 
         self._dispatch_n += 1
         slot_has_t = self._to_dev(slot_has)
-        out = local_map_track_step(
+        out = self._local_map_step(
             self.rig, self._to_dev(self.cur_mt, torch.float32), arrs["X"],
             arrs["normal"], arrs["mind"], arrs["maxd"], self._to_dev(cand_ok),
             arrs["desc"], arrs["dmask"], self.cur_feats, slot_has_t,
@@ -1241,7 +1379,7 @@ class Tracker:
         if self.reloc_bow_match_fn is not None:
             return self.reloc_bow_match_fn(kf, self.cur_feats)
         m = self.map
-        match = fetch(matcher.window_search(
+        match = fetch(self._window_search(
             m.kf_features[kf], self.cur_feats, self._to_dev(m.kf_pt[kf] >= 0),
             self.params, window=1e6, nn_ratio=0.75, use_low_th=True))[0]
         c, s = np.nonzero(match >= 0)
@@ -1282,17 +1420,9 @@ class Tracker:
         alive = m.pt_valid[pids]
         cam_idx, slot_idx, pids = cam_idx[alive], slot_idx[alive], pids[alive]
         if len(pids) >= 6:
-            rays = fetch(self.cur_feats.ray)[0][cam_idx, slot_idx]
-            Mc = self._M_c_np
-            dirs = np.einsum("nij,nj->ni", Mc[cam_idx, :3, :3], rays)
-            cap = bucket(len(pids), 128)
-            padf = lambda a: self._to_dev(np.concatenate(
-                [a, np.zeros((cap - len(a),) + a.shape[1:], a.dtype)], 0))
             self._dispatch_n += 1
-            T, _, n_in = fetch(*ransac.ransac_gpnp(
-                self.gen, padf(Mc[cam_idx, :3, 3]), padf(dirs),
-                padf(m.pt_pos[pids]),
-                self._to_dev(np.arange(cap) < len(pids)), n_hyps=256))
+            T, _, n_in = fetch(*self._gpnp(self.gen, *self._gpnp_inputs(
+                cam_idx, slot_idx, m.pt_pos[pids]), n_hyps=256))
             if int(n_in) >= max(6, int(0.4 * len(pids))):
                 mt_init = se3_np.hom2cayley(np.linalg.inv(T))
 
@@ -1308,6 +1438,20 @@ class Tracker:
         if ok:
             self.last_reloc_frame = self.frame_id
         return ok
+
+    def _gpnp_inputs(self, cam_idx, slot_idx, X):
+        """GP3P RANSAC's device inputs for the frame slots (cam_idx,
+        slot_idx) against landmarks X: body-frame ray origins and
+        directions, positions and the valid mask, padded to the frame's
+        C * K slots (padding rows invalid, so they score no inliers)."""
+        rays = fetch(self.cur_feats.ray)[0][cam_idx, slot_idx]
+        Mc = self._M_c_np
+        dirs = np.einsum("nij,nj->ni", Mc[cam_idx, :3, :3], rays)
+        cap = self.cur_pt.size
+        padf = lambda a: self._to_dev(np.concatenate(
+            [a, np.zeros((cap - len(a),) + a.shape[1:], a.dtype)], 0))
+        return (padf(Mc[cam_idx, :3, 3]), padf(dirs), padf(np.asarray(X, np.float32)),
+                self._to_dev(np.arange(cap) < len(cam_idx)))
 
     def _reloc_project_candidate(self, kf: int) -> int:
         """SearchByProjection(F, KF, sAlreadyFound, th, ORBdist), the
@@ -1326,21 +1470,8 @@ class Tracker:
         if len(cand) == 0:
             return 0
         P = len(cand)
-        cap = bucket(P, 128)
-        pad = lambda a, fill=0: self._to_dev(np.concatenate(
-            [a, np.full((cap - P,) + a.shape[1:], fill, a.dtype)], 0))
         self._dispatch_n += 1
-        uv, ok, lvl, _ = frustum_check(
-            self.rig, self._to_dev(self.cur_mt), pad(m.pt_pos[cand]),
-            pad(m.pt_normal[cand]), pad(m.pt_min_dist[cand]),
-            pad(m.pt_max_dist[cand], 1.0), n_levels=self.cfg.n_levels,
-            scale_factor=self.cfg.scale_factor, dist_slack=4.0)
-        ok = ok & (torch.arange(cap, device=self.dev) < P)
-        orb_dist = int(round((50 if self.params.masked else 100) * self.cfg.desc_bytes / 32))
-        match = fetch(matcher.reloc_projection_match(
-            self.cur_feats, self._to_dev(self.cur_pt >= 0), pad(m.pt_desc[cand]),
-            pad(m.pt_desc_mask[cand]), uv, ok, lvl, self.params, th=10.0,
-            orb_dist=orb_dist))[0]
+        match = fetch(self._reloc_projection(*self._projection_inputs(cand)))[0]
         n_new = 0
         for c in range(match.shape[0]):
             sel = np.nonzero(match[c, :P] >= 0)[0]
@@ -1349,6 +1480,23 @@ class Tracker:
             self.cur_pt[c, slots[free]] = cand[sel[free]]
             n_new += int(free.sum())
         return n_new
+
+    def _projection_inputs(self, cand):
+        """``reloc_projection_round``'s arguments for candidate landmarks
+        ``cand`` at the current pose, padded to the frame's C * K slots (a
+        keyframe has at most that many landmarks; padding rows are no
+        candidates)."""
+        m = self.map
+        P, cap = len(cand), self.cur_pt.size
+        pad = lambda a, fill=0: self._to_dev(np.concatenate(
+            [a, np.full((cap - P,) + a.shape[1:], fill, a.dtype)], 0))
+        orb_dist = int(round((50 if self.params.masked else 100) * self.cfg.desc_bytes / 32))
+        return (self.rig, self._to_dev(self.cur_mt), pad(m.pt_pos[cand]),
+                pad(m.pt_normal[cand]), pad(m.pt_min_dist[cand]),
+                pad(m.pt_max_dist[cand], 1.0), self._to_dev(np.arange(cap) < P),
+                self.cur_feats, self._to_dev(self.cur_pt >= 0), pad(m.pt_desc[cand]),
+                pad(m.pt_desc_mask[cand]), self.params, 10.0, orb_dist,
+                self.cfg.n_levels, self.cfg.scale_factor)
 
     # ------------------------------------------------------------------
 

@@ -10,13 +10,58 @@ is refit with the 8-point solver on its inliers. The non-central
 absolute pose of relocalization (GP3P hypotheses, the GPnP DLT refit;
 reference cTracking.cpp:1234-1266) is batched the same way. Sampling
 takes an explicit ``torch.Generator``.
+
+On the card the tracker replays ``ransac_essential`` (through
+``initializer.initialize_device``) and ``ransac_gpnp`` as CUDA graphs, so
+nothing here reads a device tensor on the host: the small eigen and
+singular value decompositions go to ``kernels/small_eig.py`` (whose CPU
+path is ``torch.linalg.eigh`` / ``svd``), the Newton steps' normal
+equations to ``spd_solve`` (a Cholesky written out, as cuSOLVER's and
+MAGMA's batched solvers check their info or allocate on the host), the
+winner is selected with ``index_select``, and constants come from
+``graphs.constant``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels.small_eig import svd3, sym_eig
+from ..utils import graphs
 from .geometry import cayley2rot, cayley_rot_grads, skew, triangulate_midpoint
+
+
+def _const(name, values, dtype, device):
+    """A tensor of host numbers, made once per device and dtype."""
+    return graphs.constant(name, device, dtype,
+                           lambda: torch.tensor(values, dtype=dtype, device=device))
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b for symmetric positive definite (..., n, n) A and b
+    (..., n), small n, by a Cholesky factorization and two substitutions
+    written out in batched tensor operations (what ``cholesky_ex`` and
+    ``cholesky_solve`` compute, with no library call). A pivot that is not
+    positive gives NaN in its lane."""
+    n = A.shape[-1]
+    L = torch.zeros_like(A)
+    for j in range(n):
+        col = A[..., j:, j] - (L[..., j:, :j] * L[..., j:j + 1, :j]).sum(-1)
+        d = torch.sqrt(col[..., 0])
+        L[..., j, j] = d
+        L[..., j + 1:, j] = col[..., 1:] / d[..., None]
+    y = torch.zeros_like(b)
+    for i in range(n):
+        y[..., i] = (b[..., i] - (L[..., i, :i] * y[..., :i]).sum(-1)) / L[..., i, i]
+    x = torch.zeros_like(b)
+    for i in reversed(range(n)):
+        x[..., i] = (y[..., i] - (L[..., i + 1:, i] * x[..., i + 1:]).sum(-1)) / L[..., i, i]
+    return x
+
+
+def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor on x's device, with no host read."""
+    return x.index_select(0, i.reshape(1))[0]
 
 
 def sample_minimal_sets(gen: torch.Generator, n_hyps: int, sample_size: int,
@@ -44,10 +89,10 @@ def essential_8pt(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
     essential manifold (singular values 1, 1, 0). Returns (..., 3, 3),
     up to sign and scale."""
     A = (v1[..., :, :, None] * v2[..., :, None, :]).flatten(-2)
-    _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    _, V = sym_eig(A.transpose(-1, -2) @ A)
     E = V[..., :, 0].reshape(V.shape[:-2] + (3, 3))
-    U, _, Vt = torch.linalg.svd(E)
-    s = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    U, _, Vt = svd3(E)
+    s = _const("essential_sigma", [1.0, 1.0, 0.0], E.dtype, E.device)
     return (U * s) @ Vt
 
 
@@ -83,9 +128,7 @@ def essential_5pt(v1: torch.Tensor, v2: torch.Tensor, cay0: torch.Tensor,
         J_g = torch.cat([torch.zeros_like(t), 2.0 * t], -1)[:, None, :]
         J = torch.cat([J_ep, J_g], 1)                               # (L, 6, 6)
         JtJ = J.transpose(-1, -2) @ J + 1e-8 * eye
-        # cholesky_ex: no host check of the factorization
-        L = torch.linalg.cholesky_ex(JtJ)[0]
-        step = torch.cholesky_solve(J.transpose(-1, -2) @ r[..., None], L)[..., 0]
+        step = spd_solve(JtJ, (J.transpose(-1, -2) @ r[..., None])[..., 0])
         x = x - torch.clamp(step, -0.5, 0.5)
     r, R, t = F(x)
     return skew(t) @ R, torch.linalg.norm(r, dim=-1)
@@ -106,11 +149,14 @@ ESSENTIAL_SEEDS = (
 def decompose_essential(E: torch.Tensor):
     """E (3, 3) -> 4 candidate (R12 (4, 3, 3), t12 (4, 3)) with |t| = 1
     (the U W V^T factorizations). The singular vectors' signs, and so the
-    candidates' order, depend on the SVD backend."""
-    U, _, Vt = torch.linalg.svd(E)
+    candidates' order, depend on the SVD backend (on the card the
+    ``svd3`` kernel's): the four candidates are the same set, and
+    ``cheirality_counts`` picks among them by their points, not by their
+    order."""
+    U, _, Vt = svd3(E)
     d = torch.linalg.det(U) * torch.linalg.det(Vt)
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = _const("essential_W", [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+               E.dtype, E.device)
     Ra = U @ W @ Vt * torch.sign(d)
     Rb = U @ W.T @ Vt * torch.sign(d)
     t = U[:, 2]
@@ -149,11 +195,11 @@ def ransac_essential(gen: torch.Generator, v1: torch.Tensor, v2: torch.Tensor,
     (tests/test_torch_system.py)."""
     n = v1.shape[0]
     idx = sample_minimal_sets(gen, n_hyps, sample_size, n,
-                              valid.to(torch.float32)).to(v1.device)
+                              valid.to(torch.float32))
     dt, dev = v1.dtype, v1.device
     if sample_size == 5:
-        cays = torch.tensor([s[0] for s in ESSENTIAL_SEEDS], dtype=dt, device=dev)
-        ts = torch.tensor([s[1] for s in ESSENTIAL_SEEDS], dtype=dt, device=dev)
+        cays = _const("essential_seed_cayley", [s[0] for s in ESSENTIAL_SEEDS], dt, dev)
+        ts = _const("essential_seed_t", [s[1] for s in ESSENTIAL_SEEDS], dt, dev)
         ts = ts / torch.linalg.norm(ts, dim=-1, keepdim=True)
         n_seeds = len(ESSENTIAL_SEEDS)
         lanes = lambda a: a[:, None].expand((n_hyps, n_seeds) + tuple(a.shape[1:])) \
@@ -174,13 +220,14 @@ def ransac_essential(gen: torch.Generator, v1: torch.Tensor, v2: torch.Tensor,
     inl = (errs < threshold) & valid[None, :]
     scores = inl.sum(1)
     best = torch.argmax(scores)
+    inl_best = _take(inl, best)
     # all-inlier refit of the winner, rows weighted by its inlier mask
-    wbest = inl[best].to(v1.dtype)[:, None]
+    wbest = inl_best.to(v1.dtype)[:, None]
     E_ref = essential_8pt(v1 * wbest, v2 * wbest)
     inl_ref = (_epipolar_err(E_ref, v1, v2) < threshold) & valid
-    better = inl_ref.sum() >= scores[best]
-    E_out = torch.where(better, E_ref, Es[best])
-    inl_out = torch.where(better, inl_ref, inl[best])
+    better = inl_ref.sum() >= _take(scores, best)
+    E_out = torch.where(better, E_ref, _take(Es, best))
+    inl_out = torch.where(better, inl_ref, inl_best)
     return E_out, inl_out, inl_out.sum()
 
 
@@ -207,12 +254,13 @@ def gp3p(origins: torch.Tensor, dirs: torch.Tensor, X: torch.Tensor,
     (L, 4, 4), residual norm / (1 + sum |X_i - X_j|^2) (L,))."""
     from .sim3 import horn_alignment
 
-    a = torch.tensor([p[0] for p in _PAIRS], device=X.device)
-    b = torch.tensor([p[1] for p in _PAIRS], device=X.device)
+    a = _const("gp3p_pair_a", [p[0] for p in _PAIRS], torch.int64, X.device)
+    b = _const("gp3p_pair_b", [p[1] for p in _PAIRS], torch.int64, X.device)
     D2 = ((X[:, a] - X[:, b]) ** 2).sum(-1)                    # (L, 3)
     eye = torch.eye(3, dtype=X.dtype, device=X.device)
-    sel_a = torch.nn.functional.one_hot(a, 3).to(X.dtype)        # (3 pairs, 3)
-    sel_b = torch.nn.functional.one_hot(b, 3).to(X.dtype)
+    onehot = lambda idx: [[float(i == j) for j in range(3)] for i in idx]
+    sel_a = _const("gp3p_sel_a", onehot(p[0] for p in _PAIRS), X.dtype, X.device)  # (3 pairs, 3)
+    sel_b = _const("gp3p_sel_b", onehot(p[1] for p in _PAIRS), X.dtype, X.device)
 
     def F(d):
         q = origins + d[..., None] * dirs
@@ -226,8 +274,7 @@ def gp3p(origins: torch.Tensor, dirs: torch.Tensor, X: torch.Tensor,
         gb = -2.0 * (diff * dirs[:, b]).sum(-1)
         J = ga[..., None] * sel_a + gb[..., None] * sel_b        # (L, 3, 3)
         JtJ = J.transpose(-1, -2) @ J + 1e-9 * eye
-        L = torch.linalg.cholesky_ex(JtJ)[0]
-        step = torch.cholesky_solve(J.transpose(-1, -2) @ r[..., None], L)[..., 0]
+        step = spd_solve(JtJ, (J.transpose(-1, -2) @ r[..., None])[..., 0])
         lim = 0.5 * torch.abs(d) + 1.0
         step = torch.minimum(torch.maximum(step, -lim), lim)
         d = torch.clamp(d - step, min=1e-4)
@@ -236,7 +283,7 @@ def gp3p(origins: torch.Tensor, dirs: torch.Tensor, X: torch.Tensor,
     q = origins + d[..., None] * dirs
     # torch.linalg.eigh fails on non-finite input where XLA returns NaN: a
     # diverged lane gets a finite pose here and a NaN residual, which
-    # ransac_gpnp rejects
+    # ransac_gpnp rejects (the card's sym_eig kernel keeps that rule)
     S = horn_alignment(torch.nan_to_num(q), X, fix_scale=True)  # q = R X + t
     top = torch.cat([S.R, S.t[..., None]], -1)
     bottom = torch.eye(4, dtype=X.dtype, device=X.device)[3:].expand(top.shape[:-2] + (1, 4))
@@ -258,7 +305,7 @@ def _dlt_pose(origins, dirs, X, w):
     # package, instead of an error; the SVD gets them zeroed
     u = torch.linalg.solve_ex(AtA, Af.T @ bf)[0]
     Rm = torch.nan_to_num(u[:9].reshape(3, 3).T, nan=0.0, posinf=0.0, neginf=0.0)
-    U, s, Vt = torch.linalg.svd(Rm)
+    U, s, Vt = svd3(Rm)
     det = torch.linalg.det(U @ Vt)
     one = torch.ones((), dtype=X.dtype, device=X.device)
     Rproj = U @ torch.diag(torch.stack([one, one, det])) @ Vt
@@ -307,9 +354,9 @@ def ransac_gpnp(gen: torch.Generator, origins: torch.Tensor, dirs: torch.Tensor,
     inlier mask (N,), n_inliers)."""
     n = X.shape[0]
     idx = sample_minimal_sets(gen, n_hyps, sample_size, n,
-                              valid.to(torch.float32)).to(X.device)
+                              valid.to(torch.float32))
     if sample_size == 3:
-        seeds = torch.tensor(DEPTH_SEEDS, dtype=X.dtype, device=X.device)
+        seeds = _const("gp3p_depth_seeds", DEPTH_SEEDS, X.dtype, X.device)
         S = len(DEPTH_SEEDS)
         lanes = lambda a: a[idx][:, None].expand(n_hyps, S, 3, 3).reshape(-1, 3, 3)
         d0 = seeds[None, :, None].expand(n_hyps, S, 3).reshape(-1, 3)
@@ -325,11 +372,12 @@ def ransac_gpnp(gen: torch.Generator, origins: torch.Tensor, dirs: torch.Tensor,
     inl = (errs < threshold) & valid[None, :]
     scores = inl.sum(1)
     best = torch.argmax(scores)
-    T_ref = _refit(origins, dirs, X, inl[best])
+    inl_best = _take(inl, best)
+    T_ref = _refit(origins, dirs, X, inl_best)
     inl_ref = (_ray_angle_err(T_ref, origins, dirs, X) < threshold) & valid
-    better = inl_ref.sum() >= scores[best]
-    T_out = torch.where(better, T_ref, Ts[best])
-    inl_out = torch.where(better, inl_ref, inl[best])
+    better = inl_ref.sum() >= _take(scores, best)
+    T_out = torch.where(better, T_ref, _take(Ts, best))
+    inl_out = torch.where(better, inl_ref, inl_best)
     return T_out, inl_out, inl_out.sum()
 
 

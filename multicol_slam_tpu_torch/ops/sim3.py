@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.small_eig import sym_eig
 from .geometry import (inv3x3, rodrigues2rot, rodrigues2rot_jvp, rot2rodrigues,
                        rot2rodrigues_jvp, skew)
 
@@ -267,7 +268,10 @@ def horn_alignment(P1: torch.Tensor, P2: torch.Tensor, fix_scale: bool = False) 
 
     q and -q give the same R, so the eigenvector's sign does not matter;
     for a degenerate set (a repeated largest eigenvalue) backends may pick
-    different eigenvectors of the eigenspace, and so different rotations."""
+    different eigenvectors of the eigenspace, and so different rotations.
+    The eigen-decomposition is ``kernels.small_eig.sym_eig``: on the card a
+    kernel that a CUDA graph can capture (GP3P's lanes), on the CPU
+    ``torch.linalg.eigh``."""
     c1 = P1.mean(-2, keepdim=True)
     c2 = P2.mean(-2, keepdim=True)
     Q1, Q2 = P1 - c1, P2 - c2
@@ -281,7 +285,7 @@ def horn_alignment(P1: torch.Tensor, P2: torch.Tensor, fix_scale: bool = False) 
         torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
         torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
     ], -2)
-    q = torch.linalg.eigh(N)[1][..., :, -1]          # [qw, qx, qy, qz]
+    q = sym_eig(N)[1][..., :, -1]                    # [qw, qx, qy, qz]
     qw, qx, qy, qz = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     R = torch.stack([
         torch.stack([1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw),

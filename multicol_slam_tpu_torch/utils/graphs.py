@@ -32,6 +32,19 @@ key, replayed on every later call with that key.
   time on two threads' streams (the tracker's steps and the async
   mapper's units) hold two pools. ``jit`` without a pool uses the
   module's shared one.
+- A ``torch.Generator`` argument (the RANSAC units' sampling streams) is
+  a leaf of the key, by identity, and is registered with the graph
+  (``CUDAGraph.register_generator_state``): the warm-up draws as the eager
+  call would, the capture leaves the generator where the warm-up left it,
+  and each replay draws what one eager call draws from the generator's
+  state at the replay and advances it as that call would. So a run with
+  graphs draws what an eager run draws, call for call. A generator on
+  another device than the tensors (a CPU generator among CUDA tensors)
+  raises.
+- Per-device constants of a graphed function (seeds, selection
+  matrices made from host numbers) come from ``constant``: made once per
+  device and dtype at the first (warm-up) call, since a capture refuses
+  the host-to-device copy that makes them.
 - A capture that fails raises, naming the function and the key; nothing
   falls back to running ``fn`` eagerly, and there is no switch to turn
   graphs off.
@@ -39,7 +52,8 @@ key, replayed on every later call with that key.
   ``on_launch``; inside a capture the report is recorded with the graph
   and repeated at each of its replays, so launch counts stay true.
 - ``stats()``: graphs held, captures, capture seconds, replays and the
-  pools' bytes, in all and per graphed function. ``thread_seconds()``:
+  pools' bytes, in all and per graphed function (with the generators
+  each function's graphs registered). ``thread_seconds()``:
   the calling thread's seconds in warm-ups, waiting for another thread's
   capture, and capturing.
 
@@ -72,6 +86,7 @@ _lock = threading.Lock()
 _capture_lock = threading.Lock()
 _caches: "weakref.WeakSet[jit]" = weakref.WeakSet()
 _all_pools: "weakref.WeakSet[Pool]" = weakref.WeakSet()
+_constants: dict = {}
 
 
 class _Counters:
@@ -123,6 +138,21 @@ def capturing() -> bool:
     return getattr(_local, "hooks", None) is not None
 
 
+def constant(name: str, device: torch.device, dtype, make: Callable[[], torch.Tensor]):
+    """The tensor ``make()`` returns, made once per (name, device, dtype) and
+    kept: a graphed function's constants from host numbers are made at its
+    first (warm-up) call, outside any capture."""
+    key = (name, torch.device(device), dtype)
+    t = _constants.get(key)
+    if t is None:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the constant {name} is first made on {device} inside a "
+                               f"CUDA-graph capture: run the function once before "
+                               f"capturing it")
+        t = _constants.setdefault(key, make())
+    return t
+
+
 # -- flattening ----------------------------------------------------------------
 
 class _Static(NamedTuple):
@@ -156,6 +186,22 @@ def _unflatten(spec, leaves):
     if hasattr(kind, "_fields"):
         return kind(*vals)
     return kind(vals)
+
+
+def _generators(spec) -> list:
+    """The ``torch.Generator`` leaves of a flattened argument tree."""
+    if isinstance(spec, _Static):
+        return [spec.value] if isinstance(spec.value, torch.Generator) else []
+    if isinstance(spec, int):
+        return []
+    kind, items = spec
+    return [g for item in items for g in _generators(item[1] if kind is dict else item)]
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    index = lambda d: (d.index if d.index is not None
+                       else torch.cuda.current_device() if d.type == "cuda" else None)
+    return a.type == b.type and index(a) == index(b)
 
 
 def _key(spec, leaves):
@@ -238,12 +284,16 @@ def _libraries(device: torch.device, side) -> None:
     ready.add(side.cuda_stream)
 
 
-def _capture(run: Callable[[], list], device: torch.device, pool: Pool):
-    """Capture ``run()`` into a graph of the pool on the device. Returns
-    (replay, the graph's output leaves)."""
+def _capture(run: Callable[[], list], device: torch.device, pool: Pool, *,
+             generators=()):
+    """Capture ``run()`` into a graph of the pool on the device, the
+    generators registered with it. Returns (replay, the graph's output
+    leaves)."""
     handle, side = _side(device, pool)
     _libraries(device, side)
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     with torch.cuda.graph(graph, pool=handle, stream=side,
                           capture_error_mode="thread_local"):
         outs = run()
@@ -275,6 +325,7 @@ class jit:
         self.replays = 0
         self._graphs: dict = {}
         self._warmed: set = set()     # devices this wrapper has run a warm-up on
+        self.generators: list = []    # the generators its graphs registered
         _caches.add(self)
 
     def __len__(self) -> int:
@@ -299,6 +350,12 @@ class jit:
         """Warm-up (a first key on the device) and capture; returns the
         warm-up's outputs, or with no warm-up those of one replay."""
         device = leaves[0].device if leaves else torch.device("cpu")
+        gens = _generators(spec)
+        for gen in gens:
+            if not _same_device(gen.device, device):
+                raise ValueError(f"{self.name} draws from a generator on {gen.device} with "
+                                 f"tensors on {device}: a graph registers generators of "
+                                 f"its own device only")
         warm = device not in self._warmed
         out_spec = []
 
@@ -326,7 +383,10 @@ class jit:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                replay, outputs = _capture(run_on(inputs), device, self.pool)
+                # generators passed only when there are some (a capture
+                # stand-in without them serves every other function)
+                replay, outputs = _capture(run_on(inputs), device, self.pool,
+                                           **({"generators": gens} if gens else {}))
             except Exception as e:
                 shapes = [tuple(t.shape) for t in leaves]
                 raise RuntimeError(f"CUDA-graph capture of {self.name} failed (tensor "
@@ -350,6 +410,7 @@ class jit:
                                       shapes=[tuple(t.shape) for t in leaves]))
         entry = _Entry(replay, inputs, outputs, out_spec[0], hooks)
         self._graphs[key] = entry
+        self.generators += [g for g in gens if all(g is not h for h in self.generators)]
         if not warm:
             return _replay(entry)
         self._warmed.add(device)
@@ -416,16 +477,20 @@ def stats() -> dict:
     """Graphs held (by live ``jit`` wrappers), captures, capture seconds,
     replays, the pools' bytes on the card (``pool_bytes`` in all,
     ``pools`` by name), per graphed function (``by_fn``: captures,
-    capture seconds, replays, graphs held and its pool's name) and the
+    capture seconds, replays, graphs held, its pool's name and the
+    generators its live wrappers' graphs registered) and the
     log of captures (each one's function, pool, whether a warm-up ran
     before it, the capturing thread, tensor input shapes and seconds)."""
     with _lock:
         caches = list(_caches)
-        by_fn = {k: dict(v, graphs_held=0, pool=None) for k, v in _counters.by_fn.items()}
+        by_fn = {k: dict(v, graphs_held=0, pool=None, generators=[])
+                 for k, v in _counters.by_fn.items()}
         for c in caches:
             if c.name in by_fn:
                 by_fn[c.name]["graphs_held"] += len(c)
                 by_fn[c.name]["pool"] = c.pool.name
+                by_fn[c.name]["generators"] += [f"{g.device} seed {g.initial_seed()}"
+                                                for g in c.generators]
         out = dict(graphs_held=sum(len(c) for c in caches), captures=_counters.captures,
                    capture_s=_counters.capture_s, replays=_counters.replays,
                    by_fn=by_fn, log=list(_counters.log))

@@ -67,7 +67,8 @@ class HostReads(TorchFunctionMode):
 class StandIn:
     """A capture stand-in for the CPU tests. "warm-up" runs the function
     on the call's inputs; "capture" runs it once on the static buffers
-    and keeps its outputs; "replay" runs it again on the buffers and
+    and keeps its outputs, the registered generators' states restored
+    after it; "replay" runs it again on the buffers and
     writes the results into those outputs, as a graph's replay overwrites
     its static outputs. While it replays, a launch report goes nowhere: a
     replay runs no Python, and the graph repeats the reports recorded at
@@ -84,8 +85,13 @@ class StandIn:
         self.warm_ups += 1
         return run()
 
-    def capture(self, run, device, pool):
+    def capture(self, run, device, pool, *, generators=()):
+        # a capture draws nothing: the generators stay where the warm-up
+        # left them, and each replay draws from their state then
+        states = [g.get_state() for g in generators]
         outs = run()
+        for g, st in zip(generators, states):
+            g.set_state(st)
         self.captures += 1
 
         def replay():

@@ -51,10 +51,12 @@ def render(n, dev):
 
 
 def trace_relocalization(tk, ransac_mod, log):
-    """Wraps the tracker's SearchByBoW hook, GP3P RANSAC and pose LM (the
-    JAX package's and the port's have the same names) so that each call
-    appends a line to ``log``. Returns a function that unwraps them."""
-    bow, gpnp, lm = tk.reloc_bow_match_fn, ransac_mod.ransac_gpnp, tk._optimize_current_pose
+    """Wraps the tracker's SearchByBoW hook, GP3P RANSAC (the port's
+    tracker unit ``_gpnp``, the JAX package's module function) and pose LM
+    so that each call appends a line to ``log``. Returns a function that
+    unwraps them."""
+    owner, name = (tk, "_gpnp") if hasattr(tk, "_gpnp") else (ransac_mod, "ransac_gpnp")
+    bow, gpnp, lm = tk.reloc_bow_match_fn, getattr(owner, name), tk._optimize_current_pose
 
     def bow_fn(kf, feats):
         triples = bow(kf, feats)
@@ -72,10 +74,12 @@ def trace_relocalization(tk, ransac_mod, log):
         log.append(f"pose LM {'ok' if ok else 'failed'}, {n} associations")
         return ok
 
-    tk.reloc_bow_match_fn, ransac_mod.ransac_gpnp, tk._optimize_current_pose = bow_fn, gpnp_fn, lm_fn
+    tk.reloc_bow_match_fn, tk._optimize_current_pose = bow_fn, lm_fn
+    setattr(owner, name, gpnp_fn)
 
     def undo():
-        tk.reloc_bow_match_fn, ransac_mod.ransac_gpnp = bow, gpnp
+        tk.reloc_bow_match_fn = bow
+        setattr(owner, name, gpnp)
         del tk._optimize_current_pose
     return undo
 
