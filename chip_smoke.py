@@ -274,8 +274,12 @@ Phases, each fatal on failure:
      generator's state after each the same; (b) the small eigensolvers'
      kernel (csrc/small_eig.cu: sym_eig, svd3) at each call site of phases
      6-7 (the 8-point refit, the decomposition, the DLT, Horn's alignment
-     in GP3P) against torch.linalg to its bars, launched at every site,
-     timed beside torch.linalg and its bound; (c) the frames by path and
+     in GP3P) and of phase 8 (Horn's alignment in the loop closer's Sim3
+     RANSAC) against torch.linalg to its bars, launched at every site,
+     timed beside torch.linalg, its bound and the launch floor (an empty
+     kernel, tools/empty_kernel.cu, built with the others in phase 2),
+     with the registers and local bytes of each kernel instance, none in
+     float32; (c) the frames by path and
      the relocalization against the eager tree's (printed), each unit's ms
      eager and graphed, captures and replays by unit and phase, what the
      capture-ahead took and what captured after it; GP3P and the pose LM
@@ -544,14 +548,21 @@ PARENT_MS = {"init": (315.976, 268.087), "velocity": (416.538, 317.372),
 # JAX package's XLA calls they stand for (no Pallas kernel), their bars
 EIG_SITES = {"essential_8pt": "eight_point", "decompose_essential": "decompose",
              "_dlt_pose": "dlt", "horn_alignment": "horn"}
+# a caller that renames its callees' site: the loop closer's Sim3 RANSAC
+# (Horn on 256 x 3 pairs, eager; recorded in phase 8)
+EIG_CONTEXT = {"_compute_sim3": "sim3_ransac"}
 EIG_PATH_SITES = ("sym_eig@eight_point", "sym_eig@horn", "svd3@eight_point",
                   "svd3@decompose", "svd3@dlt")
+EIG_LOOP_SITES = ("sym_eig@sim3_ransac",)       # phase 8's
+EMPTY_SOURCE = "tools/empty_kernel.cu"         # the launch floor's yardstick
+EMPTY: dict = {}                               # its library, built in phase 2
 EIG_SOURCE = "multicol_slam_tpu_torch/csrc/small_eig.cu"
 EIG_REPLACES = {"sym_eig@eight_point": "multicol_slam_tpu/ops/ransac.py:56",
                 "sym_eig@horn": "multicol_slam_tpu/ops/sim3.py:169",
                 "svd3@eight_point": "multicol_slam_tpu/ops/ransac.py:59",
                 "svd3@decompose": "multicol_slam_tpu/ops/ransac.py:135",
-                "svd3@dlt": "multicol_slam_tpu/ops/ransac.py:310"}
+                "svd3@dlt": "multicol_slam_tpu/ops/ransac.py:310",
+                "sym_eig@sim3_ransac": "multicol_slam_tpu/ops/sim3.py:169"}
 EIG_VAL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 EIG_VEC_TOL = 1e-4
 EIG_GAP = 1e-3
@@ -987,8 +998,10 @@ class EigSpy:
         def call(A, *rest):
             from multicol_slam_tpu_torch.utils import graphs
 
-            site = entry + "@" + next((EIG_SITES[n] for n in _stack_names() if n in EIG_SITES),
-                                      "other")
+            names = _stack_names()
+            site = entry + "@" + next((EIG_CONTEXT[n] for n in names if n in EIG_CONTEXT),
+                                      next((EIG_SITES[n] for n in names if n in EIG_SITES),
+                                           "other"))
             if not graphs.capturing():
                 self.args.setdefault(site, A.clone())
             graphs.on_launch(lambda: EigSpy.active is not None and EigSpy.active._count(site))
@@ -3508,9 +3521,29 @@ def eig_errors(entry, A, got, want):
     return val_err, vec_err, int(apart.sum())
 
 
-def eig_entry(site, A, launches, card):
+def empty_library(knn):
+    """The empty kernel (EMPTY_SOURCE), built as the port's kernels are."""
+    import ctypes
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lib = ctypes.CDLL(knn.build(os.path.join(here, EMPTY_SOURCE), "libempty"))
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    return lib
+
+
+def launch_floor_ms(lib, threads: int = 32) -> float:
+    """Device ms of one launch of an empty kernel (one block of
+    ``threads``), timed as device_ms times an entry: the least a launch of
+    the small eigensolvers can take on this card."""
+    return device_ms(lambda: lib.empty_launch(threads, torch.cuda.current_stream().cuda_stream))
+
+
+def eig_entry(site, A, launches, card, floor_ms):
     """Compare, time and bound one small-eigensolver site's recorded input
-    on the card; returns its entry of the kernels line."""
+    on the card, beside the launch floor and the registers and local bytes
+    of the kernel instance it launches; returns its entry of the kernels
+    line."""
     from multicol_slam_tpu_torch.kernels import small_eig
 
     entry = site.split("@")[0]
@@ -3541,11 +3574,16 @@ def eig_entry(site, A, launches, card):
     peak = F32_OPS_S if A.dtype == torch.float32 else F64_OPS_S
     t_bytes, t_ops = moved / HBM_BYTES_S * 1e3, flops / peak * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    attrs = small_eig.kernel_attributes(entry, n, A.dtype, A.device)
+    dtype = str(A.dtype).replace("torch.", "")
+    instance = f"{entry}<{dtype}, {n}>" if entry == "sym_eig" else f"svd3<{dtype}>"
     print(f"{site}: {tuple(A.shape)} {A.dtype}, {launches} launches on the main path, "
           f"{n_sweeps / batch:.2f} Jacobi sweeps a matrix: device {ms * 1e3:.2f} us a launch "
-          f"(bound {bound_ms * 1e3:.4f} us, {bound_by}), torch.linalg "
-          f"{plain_ms * 1e3:.2f} us a call; against it values {val_err:.3g} of the "
-          f"largest, vectors {vec_err:.3g} over {cols} columns ({card})")
+          f"(the launch floor {floor_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.4f} us, "
+          f"{bound_by}), torch.linalg {plain_ms * 1e3:.2f} us a call; {instance}: "
+          f"{attrs['registers']} registers, {attrs['local_bytes']} local bytes a thread; "
+          f"against torch.linalg values {val_err:.3g} of the largest, vectors {vec_err:.3g} "
+          f"over {cols} columns ({card})")
     return {"name": f"{entry}@{site.split('@')[1]}", "route": "cuda", "source": EIG_SOURCE,
             "replaces": EIG_REPLACES[site],
             "replaces_note": "no Pallas kernel: XLA's eigh / svd inside the JAX package's "
@@ -3553,7 +3591,8 @@ def eig_entry(site, A, launches, card):
             "launches": launches, "max_abs_err": max(val_err, vec_err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": plain_ms, "library": f"torch.linalg.{'eigh' if entry == 'sym_eig' else 'svd'}",
-            "shape": list(A.shape), "dtype": str(A.dtype).replace("torch.", "")}
+            "floor_ms": floor_ms, "instance": instance, "registers": attrs["registers"],
+            "local_bytes": attrs["local_bytes"], "shape": list(A.shape), "dtype": dtype}
 
 
 def eig_cases(dev):
@@ -3573,7 +3612,52 @@ def eig_cases(dev):
             for e, a in (("sym_eig", sym), ("svd3", mats))]
 
 
-def tracker_graph_phase(dev, card, slam, frames, eig_spy, eig_launches):
+def eig_phase(dev, card, eig_spies, eig_launches):
+    """Phase 17 (b): the small eigensolvers' kernel at each call site the
+    spies recorded (phases 6-7's, then phase 8's Sim3 RANSAC), launched
+    at every site, against torch.linalg to its bars, timed beside it, its
+    bound and the launch floor (an empty kernel), the registers and local
+    bytes of each instance (none in float32); and on seeded adversarial
+    matrices. Returns the kernel JSON entries."""
+    from multicol_slam_tpu_torch.kernels import small_eig
+
+    entries = []
+    floor_ms = launch_floor_ms(EMPTY["lib"])
+    print(f"phase 17 (b): the launch floor, an empty kernel of 32 threads, 20 launches "
+          f"in a CUDA graph: {floor_ms * 1e3:.2f} us a launch ({card})")
+    for entry, n in (("sym_eig", 4), ("sym_eig", 9), ("svd3", 3)):
+        for dt in (torch.float32, torch.float64):
+            attrs = small_eig.kernel_attributes(entry, n, dt, dev)
+            print(f"phase 17 (b): {entry} n={n} {dt}: {attrs}")
+            if dt == torch.float32 and attrs["local_bytes"]:
+                fail(f"phase 17: the float32 {entry} instance at n={n} uses "
+                     f"{attrs['local_bytes']} bytes of local memory a thread")
+    for spy, (sym_n, svd_n), sites, phases in zip(eig_spies, eig_launches,
+                                                  (EIG_PATH_SITES, EIG_LOOP_SITES),
+                                                  ("phases 6-7", "phase 8")):
+        for entry, total in (("sym_eig", sym_n), ("svd3", svd_n)):
+            by_site = sum(n for st, n in spy.launches.items() if st.startswith(entry + "@"))
+            if by_site != total or (entry in {s.split("@")[0] for s in sites} and not total):
+                fail(f"phase 17: {entry} launched {total} times over {phases}, its sites "
+                     f"{dict(spy.launches)}")
+        for site in sites:
+            if not spy.launches[site] or site not in spy.args:
+                fail(f"phase 17: the small eigensolver was not launched at {site} in {phases}")
+            entries.append(eig_entry(site, spy.args[site], spy.launches[site], card, floor_ms))
+    for entry, A in eig_cases(dev):
+        got = getattr(small_eig, entry)(A)
+        want = getattr(small_eig, entry + "_reference")(A)
+        val_err, vec_err, cols = eig_errors(entry, A, got, want)
+        if val_err > EIG_VAL_TOL[A.dtype] or vec_err > EIG_VEC_TOL:
+            fail(f"phase 17: {entry} on the seeded cases ({A.dtype}): values {val_err:.3g}, "
+                 f"vectors {vec_err:.3g}")
+        print(f"phase 17 (b): {entry} on seeded repeated, zero and rank-deficient cases "
+              f"({A.dtype}): values {val_err:.3g} of the largest, vectors {vec_err:.3g} over "
+              f"{cols} columns")
+    return entries
+
+
+def tracker_graph_phase(dev, card, slam, frames, eig_spies, eig_launches):
     """Phase 17: the tracker's graphs. (a) every call of the tracker's units
     recorded in phases 6, 7 and 9 (TrackerUnits) runs again eagerly (the
     unit's function) and through its graph (a replay) on copies of its
@@ -3586,14 +3670,14 @@ def tracker_graph_phase(dev, card, slam, frames, eig_spy, eig_launches):
     each call site of phases 6-7 against its plain version (values within
     1e-5 of the largest in float32, 1e-12 in float64; vectors within 1e-4
     after sign alignment where their value stands apart), launched at
-    every site on that path, timed beside torch.linalg and its bound, and
-    on seeded adversarial matrices. (c) the frames by path and the
+    every site on that path and at phase 8's Sim3 RANSAC (eig_phase:
+    ``eig_spies`` and ``eig_launches`` are phases 6-7's, then phase 8's).
+    (c) the frames by path and the
     relocalization against the eager tree's (PARENT_MS, printed), each unit's ms eager
     against graphed, the captures and replays of each unit by phase, the
     capture-ahead and what captured after it; GP3P and the pose LM must
     capture nothing on phase 7's relocalized frames. Returns the kernel
     JSON entries."""
-    from multicol_slam_tpu_torch.kernels import small_eig
     from multicol_slam_tpu_torch.utils import graphs
 
     # (a) the recorded calls
@@ -3660,27 +3744,7 @@ def tracker_graph_phase(dev, card, slam, frames, eig_spy, eig_launches):
               f"({card})")
 
     # (b) the small eigensolvers
-    sym_n, svd_n = eig_launches
-    for entry, total in (("sym_eig", sym_n), ("svd3", svd_n)):
-        by_site = sum(n for st, n in eig_spy.launches.items() if st.startswith(entry + "@"))
-        if by_site != total or not total:
-            fail(f"phase 17: {entry} launched {total} times over phases 6-7, its sites "
-                 f"{dict(eig_spy.launches)}")
-    entries = []
-    for site in EIG_PATH_SITES:
-        if not eig_spy.launches[site] or site not in eig_spy.args:
-            fail(f"phase 17: the small eigensolver was not launched at {site} in phases 6-7")
-        entries.append(eig_entry(site, eig_spy.args[site], eig_spy.launches[site], card))
-    for entry, A in eig_cases(dev):
-        got = getattr(small_eig, entry)(A)
-        want = getattr(small_eig, entry + "_reference")(A)
-        val_err, vec_err, cols = eig_errors(entry, A, got, want)
-        if val_err > EIG_VAL_TOL[A.dtype] or vec_err > EIG_VEC_TOL:
-            fail(f"phase 17: {entry} on the seeded cases ({A.dtype}): values {val_err:.3g}, "
-                 f"vectors {vec_err:.3g}")
-        print(f"phase 17 (b): {entry} on seeded repeated, zero and rank-deficient cases "
-              f"({A.dtype}): values {val_err:.3g} of the largest, vectors {vec_err:.3g} over "
-              f"{cols} columns")
+    entries = eig_phase(dev, card, eig_spies, eig_launches)
 
     # (c) frames by path against the parent, captures and replays
     med = lambda xs: round(statistics.median(xs), 3) if xs else None
@@ -3827,13 +3891,17 @@ def main() -> None:
     # -- 2. build: one nvcc a source, all started together -------------------
     t0 = time.perf_counter()
     builds = [threading.Thread(target=lib.load_library) for lib in (knn, small_eig)]
+    builds.append(threading.Thread(target=lambda: EMPTY.update(lib=empty_library(knn))))
     for b in builds:
         b.start()
     for b in builds:
         b.join()
     knn.load_library()          # raises here if its build failed
     small_eig.load_library()
-    print(f"kernel build s {time.perf_counter() - t0:.3f}, both sources at once ({card})")
+    if "lib" not in EMPTY:
+        EMPTY["lib"] = empty_library(knn)
+    print(f"kernel build s {time.perf_counter() - t0:.3f}, the two kernel sources and "
+          f"{EMPTY_SOURCE} at once ({card})")
     mark("2 build")
 
     # -- 3. both entries against plain: random and adversarial inputs -------
@@ -3966,7 +4034,11 @@ def main() -> None:
     eig_launches = (small_eig.sym_eig.launches, small_eig.svd3.launches)
 
     # -- 8. loop closing -----------------------------------------------------
-    loop_entries, loop_times = loop_phase(knn, card, slam)
+    # the small eigensolvers' third path: the loop closer's Sim3 RANSAC
+    small_eig.sym_eig.launches = small_eig.svd3.launches = 0
+    with EigSpy() as loop_eig_spy:
+        loop_entries, loop_times = loop_phase(knn, card, slam)
+    loop_eig_launches = (small_eig.sym_eig.launches, small_eig.svd3.launches)
     mark("8 loop closing")
 
     # -- 9. the mdBRIEF system -------------------------------------------------
@@ -4024,7 +4096,8 @@ def main() -> None:
     mark("16 loop graphs")
 
     # -- 17. the tracker's graphed units and the small eigensolvers -----------------
-    tracker_entries = tracker_graph_phase(dev, card, slam, frames, eig_spy, eig_launches)
+    tracker_entries = tracker_graph_phase(dev, card, slam, frames, (eig_spy, loop_eig_spy),
+                                          (eig_launches, loop_eig_launches))
     TRACKER_RECORDS.clear()
     graph_line("phase 17")
     mark("17 tracker graphs")

@@ -7,8 +7,18 @@ TPU kernel: the JAX package's jitted RANSAC runs XLA's ``eigh`` and
 ``svd`` inside its compiled unit, while on the card ``torch.linalg.eigh``
 and ``svd`` read cuSOLVER's info flag on the host after each call, which a
 CUDA-graph capture refuses. The bootstrap's 8-point refit and
-decomposition, the DLT refit and Horn's alignment in GP3P call these
-(``ops/ransac.py``, ``ops/sim3.py``).
+decomposition, the DLT refit and Horn's alignment in GP3P and in the loop
+closer's Sim3 RANSAC call these (``ops/ransac.py``, ``ops/sim3.py``).
+
+The kernels are latency-bound (a rotation is a chain of divides and
+square roots) and keep every matrix out of local memory: ``sym_eig`` runs
+Jacobi in parallel (round-robin) order, from n = 5 with a warp a matrix
+(lane i holds row i of A and column i of V in registers; rows, columns and
+rotations are exchanged with warp shuffles), to n = 4 with one thread a
+matrix; ``svd3`` runs one thread a matrix. Every index inside a thread is
+a compile-time constant, so the matrices stay in registers.
+``kernel_attributes`` reads an instance's registers and local bytes back
+(``cudaFuncGetAttributes``).
 
 A CPU tensor takes the plain version (``torch.linalg.eigh`` /
 ``torch.linalg.svd``); a CUDA tensor launches the kernel or raises. The
@@ -55,6 +65,8 @@ def load_library() -> ctypes.CDLL:
             lib.svd3_launch.restype = i32
             lib.small_eig_init.argtypes = []
             lib.small_eig_init.restype = i32
+            lib.small_eig_attributes.argtypes = [i32, i32, i32, ptr]
+            lib.small_eig_attributes.restype = i32
             _lib = lib
     return _lib
 
@@ -107,6 +119,27 @@ def _launch(fn, dev, *args):
         raise RuntimeError(f"small eigensolver launch failed: cudaError {err}")
 
 
+def kernel_attributes(entry: str, n: int, dtype: torch.dtype, device=None) -> dict:
+    """Registers a thread, local (stack) bytes a thread, static shared
+    bytes a block and threads a block of the kernel instance that
+    ``entry`` ("sym_eig" at n, or "svd3") launches for ``dtype``, on the
+    card (``cudaFuncGetAttributes``; a read-only query)."""
+    if entry not in ("sym_eig", "svd3") or dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"no kernel for {entry} in {dtype}")
+    if entry == "sym_eig" and not 1 <= n <= MAX_N:
+        raise ValueError(f"sym_eig: n = {n} outside 1..{MAX_N}")
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
+        else torch.device(device)
+    _init_on(dev)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(dev):
+        err = load_library().small_eig_attributes(int(entry == "svd3"), n,
+                                                  int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"small eigensolver attribute query failed: cudaError {err}")
+    return dict(registers=out[0], local_bytes=out[1], shared_bytes=out[2], threads=out[3])
+
+
 # -- plain versions ------------------------------------------------------------
 
 def sym_eig_reference(A: torch.Tensor):
@@ -125,8 +158,9 @@ def sym_eig(A: torch.Tensor, sweeps: torch.Tensor | None = None):
     """(eigenvalues (..., n) ascending, eigenvectors (..., n, n) as columns)
     of symmetric (..., n, n) float32 / float64 matrices, n <= 12, read
     from the lower triangle. A CPU tensor takes ``torch.linalg.eigh``; a
-    CUDA tensor launches the Jacobi kernel. ``sweeps`` (an int32 tensor of
-    the batch's size, CUDA only) receives each matrix's Jacobi sweeps."""
+    CUDA tensor launches the parallel-order Jacobi kernel. ``sweeps`` (an
+    int32 tensor of the batch's size, CUDA only) receives each matrix's
+    Jacobi sweeps."""
     n = _check("sym_eig", A, None)
     if A.device.type == "cpu":
         return sym_eig_reference(A)
