@@ -441,8 +441,6 @@ svd3_kernel(const T* __restrict__ A, T* __restrict__ U, T* __restrict__ S,
   if (sweeps_out != nullptr) sweeps_out[b] = sweep;
 }
 
-// the sym_eig kernel of n and its grid: one thread a matrix to
-// THREAD_MAX_N, a warp a matrix beyond
 template <typename T, int N>
 const void* eig_kernel_n() {
   if constexpr (N <= THREAD_MAX_N)
@@ -451,64 +449,33 @@ const void* eig_kernel_n() {
     return (const void*)sym_eig_warp<T, N>;
 }
 
-template <typename T, int N>
-int launch_eig(const void* A, void* w, void* V, void* sweeps, long long batch,
-               cudaStream_t stream) {
-  const T* a = static_cast<const T*>(A);
-  T* wo = static_cast<T*>(w);
-  T* vo = static_cast<T*>(V);
-  int32_t* so = static_cast<int32_t*>(sweeps);
-  if constexpr (N <= THREAD_MAX_N)
-    sym_eig_thread<T, N><<<(unsigned)((batch + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-        a, wo, vo, so, batch);
-  else
-    sym_eig_warp<T, N><<<(unsigned)batch, THREADS, 0, stream>>>(a, wo, vo, so, batch);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_eig(const void* A, void* w, void* V, void* sweeps, long long batch, int n,
-                 cudaStream_t stream) {
-  switch (n) {
-    case 1: return launch_eig<T, 1>(A, w, V, sweeps, batch, stream);
-    case 2: return launch_eig<T, 2>(A, w, V, sweeps, batch, stream);
-    case 3: return launch_eig<T, 3>(A, w, V, sweeps, batch, stream);
-    case 4: return launch_eig<T, 4>(A, w, V, sweeps, batch, stream);
-    case 5: return launch_eig<T, 5>(A, w, V, sweeps, batch, stream);
-    case 6: return launch_eig<T, 6>(A, w, V, sweeps, batch, stream);
-    case 7: return launch_eig<T, 7>(A, w, V, sweeps, batch, stream);
-    case 8: return launch_eig<T, 8>(A, w, V, sweeps, batch, stream);
-    case 9: return launch_eig<T, 9>(A, w, V, sweeps, batch, stream);
-    case 10: return launch_eig<T, 10>(A, w, V, sweeps, batch, stream);
-    case 11: return launch_eig<T, 11>(A, w, V, sweeps, batch, stream);
-    case 12: return launch_eig<T, 12>(A, w, V, sweeps, batch, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
+// the sym_eig kernel at n (one thread a matrix to THREAD_MAX_N, a warp a
+// matrix beyond), null outside 1..MAX_N
 template <typename T>
 const void* eig_kernel(int n) {
-  switch (n) {
-    case 1: return eig_kernel_n<T, 1>();
-    case 2: return eig_kernel_n<T, 2>();
-    case 3: return eig_kernel_n<T, 3>();
-    case 4: return eig_kernel_n<T, 4>();
-    case 5: return eig_kernel_n<T, 5>();
-    case 6: return eig_kernel_n<T, 6>();
-    case 7: return eig_kernel_n<T, 7>();
-    case 8: return eig_kernel_n<T, 8>();
-    case 9: return eig_kernel_n<T, 9>();
-    case 10: return eig_kernel_n<T, 10>();
-    case 11: return eig_kernel_n<T, 11>();
-    case 12: return eig_kernel_n<T, 12>();
-    default: return nullptr;
-  }
+  static const void* const table[MAX_N] = {
+      eig_kernel_n<T, 1>(), eig_kernel_n<T, 2>(),  eig_kernel_n<T, 3>(),
+      eig_kernel_n<T, 4>(), eig_kernel_n<T, 5>(),  eig_kernel_n<T, 6>(),
+      eig_kernel_n<T, 7>(), eig_kernel_n<T, 8>(),  eig_kernel_n<T, 9>(),
+      eig_kernel_n<T, 10>(), eig_kernel_n<T, 11>(), eig_kernel_n<T, 12>()};
+  return 1 <= n && n <= MAX_N ? table[n - 1] : nullptr;
 }
 
-// the kernel that entry (0 sym_eig at n, 1 svd3) launches in type T
-template <typename T>
-const void* kernel_of(int entry, int n) {
-  return entry == 0 ? eig_kernel<T>(n) : (const void*)svd3_kernel<T>;
+// the kernel that entry (0 sym_eig at n, 1 svd3) launches in float64 or
+// float32
+const void* kernel_of(int entry, int n, int f64) {
+  if (entry == 1) return f64 ? (const void*)svd3_kernel<double> : (const void*)svd3_kernel<float>;
+  return f64 ? eig_kernel<double>(n) : eig_kernel<float>(n);
+}
+
+// one launch of fn on batch matrices: a warp a matrix for sym_eig beyond
+// THREAD_MAX_N, else a thread a matrix; args as the kernels take them
+int launch(const void* fn, bool warp, long long batch, void** args, void* stream) {
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return 0;
+  const unsigned grid = (unsigned)(warp ? batch : (batch + THREADS - 1) / THREADS);
+  return (int)cudaLaunchKernel(fn, dim3(grid), dim3(THREADS), args, 0,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -522,8 +489,7 @@ int small_eig_init() {
   for (int entry = 0; entry < 2; ++entry) {
     for (int n = 1; n <= (entry == 0 ? MAX_N : 1); ++n) {
       for (int f64 = 0; f64 < 2; ++f64) {
-        const void* fn = f64 ? kernel_of<double>(entry, n) : kernel_of<float>(entry, n);
-        cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+        cudaError_t err = cudaFuncGetAttributes(&attr, kernel_of(entry, n, f64));
         if (err != cudaSuccess) return (int)err;
       }
     }
@@ -531,20 +497,17 @@ int small_eig_init() {
   return 0;
 }
 
-// A read-only query: out = {registers a thread, local bytes a thread,
-// static shared bytes a block, threads a block at launch} of the kernel
-// that entry (0 sym_eig, 1 svd3) launches at n (sym_eig) in float64 or
-// float32.
+// A read-only query: out = {registers a thread, local bytes a thread} of
+// the kernel that entry (0 sym_eig, 1 svd3) launches at n (sym_eig) in
+// float64 or float32.
 int small_eig_attributes(int entry, int n, int f64, int* out) {
-  const void* fn = f64 ? kernel_of<double>(entry, n) : kernel_of<float>(entry, n);
+  const void* fn = kernel_of(entry, n, f64);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)attr.sharedSizeBytes;
-  out[3] = THREADS;
   return 0;
 }
 
@@ -552,28 +515,16 @@ int small_eig_attributes(int entry, int n, int f64, int* out) {
 // sweeps (batch,) int32 or null: the Jacobi sweeps each matrix took.
 int sym_eig_launch(const void* A, void* w, void* V, void* sweeps, long long batch, int n,
                    int f64, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0) return 0;
-  return f64 ? dispatch_eig<double>(A, w, V, sweeps, batch, n, s)
-             : dispatch_eig<float>(A, w, V, sweeps, batch, n, s);
+  void* args[] = {&A, &w, &V, &sweeps, &batch};
+  return launch(kernel_of(0, n, f64), n > THREAD_MAX_N, batch, args, stream);
 }
 
 // A (batch, 3, 3) contiguous; U (batch, 3, 3); S (batch, 3); Vh (batch, 3, 3);
 // sweeps (batch,) int32 or null.
 int svd3_launch(const void* A, void* U, void* S, void* Vh, void* sweeps, long long batch,
                 int f64, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (batch <= 0) return 0;
-  long long blocks = (batch + THREADS - 1) / THREADS;
-  if (f64)
-    svd3_kernel<double><<<(unsigned)blocks, THREADS, 0, st>>>(
-        static_cast<const double*>(A), static_cast<double*>(U), static_cast<double*>(S),
-        static_cast<double*>(Vh), static_cast<int32_t*>(sweeps), batch);
-  else
-    svd3_kernel<float><<<(unsigned)blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(A), static_cast<float*>(U), static_cast<float*>(S),
-        static_cast<float*>(Vh), static_cast<int32_t*>(sweeps), batch);
-  return (int)cudaGetLastError();
+  void* args[] = {&A, &U, &S, &Vh, &sweeps, &batch};
+  return launch(kernel_of(1, 3, f64), false, batch, args, stream);
 }
 
 }  // extern "C"

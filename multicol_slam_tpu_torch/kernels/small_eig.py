@@ -120,10 +120,10 @@ def _launch(fn, dev, *args):
 
 
 def kernel_attributes(entry: str, n: int, dtype: torch.dtype, device=None) -> dict:
-    """Registers a thread, local (stack) bytes a thread, static shared
-    bytes a block and threads a block of the kernel instance that
-    ``entry`` ("sym_eig" at n, or "svd3") launches for ``dtype``, on the
-    card (``cudaFuncGetAttributes``; a read-only query)."""
+    """Registers a thread and local (stack) bytes a thread of the kernel
+    instance that ``entry`` ("sym_eig" at n, or "svd3") launches for
+    ``dtype``, on the card (``cudaFuncGetAttributes``; a read-only
+    query)."""
     if entry not in ("sym_eig", "svd3") or dtype not in (torch.float32, torch.float64):
         raise ValueError(f"no kernel for {entry} in {dtype}")
     if entry == "sym_eig" and not 1 <= n <= MAX_N:
@@ -131,13 +131,13 @@ def kernel_attributes(entry: str, n: int, dtype: torch.dtype, device=None) -> di
     dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
         else torch.device(device)
     _init_on(dev)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         err = load_library().small_eig_attributes(int(entry == "svd3"), n,
                                                   int(dtype == torch.float64), out)
     if err != 0:
         raise RuntimeError(f"small eigensolver attribute query failed: cudaError {err}")
-    return dict(registers=out[0], local_bytes=out[1], shared_bytes=out[2], threads=out[3])
+    return dict(registers=out[0], local_bytes=out[1])
 
 
 # -- plain versions ------------------------------------------------------------

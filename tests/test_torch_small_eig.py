@@ -475,8 +475,8 @@ def test_kernels_capture_and_replay(dev, case):
 @pytest.mark.parametrize("entry, n", [("sym_eig", 4), ("sym_eig", 9), ("svd3", 3)])
 def test_float32_instances_use_no_local_memory(dev, entry, n):
     """The float32 instances the system launches (Horn's 4x4, the 8-point
-    refit's 9x9, the 3x3 SVD) keep every matrix in registers and shared
-    memory: no local (stack) bytes, by cudaFuncGetAttributes."""
+    refit's 9x9, the 3x3 SVD) keep every matrix in registers: no local
+    (stack) bytes, by cudaFuncGetAttributes."""
     attrs = se.kernel_attributes(entry, n, torch.float32, dev)
     assert attrs["local_bytes"] == 0, attrs
-    assert attrs["registers"] > 0 and attrs["threads"] > 0
+    assert attrs["registers"] > 0

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""The small eigensolvers on the card, parent against change: builds two
-or more builds of the kernel source (``csrc/small_eig.cu`` as it is, and
-the parent's, written out of git beforehand), prints each instance's
+"""The small eigensolvers on the card, parent against change: builds the
+kernel source twice (``csrc/small_eig.cu`` as it is, and the parent's,
+written out of git beforehand), prints each instance's
 registers, stack frame and spills (``nvcc -Xptxas -v``), and times every
 build on the same recorded inputs of every call site, in turns, beside
 the launch floor (an empty kernel in a CUDA graph) and torch.linalg. It
 also breaks the device time of the bootstrap (``initialize_device``) and
 of a relocalization (``Tracker._relocalize``) down by stage.
 
-One process a system build (``--order``, default parent then change): the
-process loads that build into ``kernels.small_eig`` and runs
+One process a system run (``--order``, default parent, change, change,
+parent): the process loads that build into ``kernels.small_eig`` and runs
 ``MultiColSLAM`` at its defaults over 40 frames of ``bench_trajectory``
 under ``chip_smoke.EigSpy`` (each site's first input and its launches),
 then one ComputeSim3 between the first two keyframes (the loop closer's
@@ -20,19 +20,15 @@ Sim3 RANSAC, 256 x 4x4), then
   relocalizations with the tracker's units eager (the stages inside
   ``_relocalize`` only), under ``torch.profiler`` with a
   ``record_function`` range a stage (``stage_device_us``). The graphed
-  ``initialize_device`` on the same inputs between two events;
+  ``initialize_device`` on the same inputs (5 calls): ms between two
+  events, and the host ms of the call up to the second event;
 - the sites: each build's device us a launch (``chip_smoke.device_ms``:
   20 launches in one CUDA graph, replayed) in the order parent, change,
-  change, parent (then the ``--variant`` builds), and each build's output
-  against torch.linalg at ``chip_smoke``'s bars.
+  change, parent, and each build's output against torch.linalg at
+  ``chip_smoke``'s bars.
 
-A variant is a study source with the same C interface that may refuse
-some shapes (``tools/eig_layout_lanes.cu``: 4x4 on four lanes a matrix,
-the layout csrc/small_eig.cu does not take); the program has no switch
-for it.
-
-    python3 tools/eig_study.py --write-parent HEAD~1     # here: the parent's source
-    chiprun --timeout 900 -- python3 tools/eig_study.py --variant tools/eig_layout_lanes.cu
+    python3 tools/eig_study.py --write-parent HEAD~1     # in a git checkout: the parent's source
+    python3 tools/eig_study.py                           # on one H100
 
 Prints each process's tables beside the card's name and power limit; the
 last line is one JSON object, a list of runs.
@@ -142,9 +138,8 @@ def open_lib(so: str) -> ctypes.CDLL:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.sym_eig_launch.argtypes = [ptr] * 4 + [i64, i32, i32, ptr]
     lib.sym_eig_launch.restype = i32
-    if hasattr(lib, "svd3_launch"):
-        lib.svd3_launch.argtypes = [ptr] * 5 + [i64, i32, ptr]
-        lib.svd3_launch.restype = i32
+    lib.svd3_launch.argtypes = [ptr] * 5 + [i64, i32, ptr]
+    lib.svd3_launch.restype = i32
     lib.small_eig_init.argtypes = []
     lib.small_eig_init.restype = i32
     return lib
@@ -152,8 +147,7 @@ def open_lib(so: str) -> ctypes.CDLL:
 
 def launcher(lib, entry, A):
     """A function that launches lib's entry on A into outputs made once,
-    on the current stream (its error code), and those outputs; None where
-    the build has no such entry."""
+    on the current stream (its error code), and those outputs."""
     import torch
 
     n = A.shape[-1]
@@ -165,8 +159,6 @@ def launcher(lib, entry, A):
         w, V = new(B, n), new(B, n, n)
         return (lambda: lib.sym_eig_launch(a.data_ptr(), w.data_ptr(), V.data_ptr(), None,
                                            B, n, f64, stream())), (w, V)
-    if not hasattr(lib, "svd3_launch"):
-        return None
     U, S, Vh = new(B, 3, 3), new(B, 3), new(B, 3, 3)
     return (lambda: lib.svd3_launch(a.data_ptr(), U.data_ptr(), S.data_ptr(), Vh.data_ptr(),
                                     None, B, f64, stream())), (U, S, Vh)
@@ -350,13 +342,16 @@ def one(label: str, libs: dict) -> dict:
                     (initializer, "initialize_device", "total")]
     init_stages = profiled_stages(eager_init, init_targets, INIT_REPS)
     print(f"[{label}] initialize_device stages {init_stages}", file=sys.stderr)
-    graph_ms, after = [], tr_gen.get_state()
+    graph_ms, host_ms, after = [], [], tr_gen.get_state()
     for _ in range(INIT_REPS):               # the tracker's generator: the graph's key
         tr_gen.set_state(state)
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
         t0.record()
         init_unit(tr_gen, *a, **k)
         t1.record()
+        host_ms.append((time.perf_counter() - h0) * 1e3)
         t1.synchronize()
         graph_ms.append(t0.elapsed_time(t1))
     tr_gen.set_state(after)
@@ -394,8 +389,7 @@ def one(label: str, libs: dict) -> dict:
     empty.empty_launch.restype = ctypes.c_int
     floor_us = {t: cs.device_ms(lambda t=t: empty.empty_launch(
         t, torch.cuda.current_stream().cuda_stream)) * 1e3 for t in (32, 64)}
-    turns = ["parent", "change", "change", "parent"] + [b for b in loaded
-                                                        if b not in ("parent", "change")]
+    turns = ["parent", "change", "change", "parent"]
     sites = {}
     for site, A in sorted(spy.args.items()):
         entry = site.split("@")[0]
@@ -405,10 +399,9 @@ def one(label: str, libs: dict) -> dict:
                    linalg_us=cs.cuda_ms(lambda: getattr(small_eig, entry + "_reference")(A)) * 1e3,
                    us={}, err={}, sweeps={})
         for b in turns:
-            made = launcher(loaded[b], entry, A)
-            if made is None or made[0]() != 0:
-                continue                        # a variant that refuses this shape
-            fn, outs = made
+            fn, outs = launcher(loaded[b], entry, A)
+            if fn() != 0:
+                raise SystemExit(f"eig_study: build {b} failed to launch at {site}")
             torch.cuda.synchronize()
             if b not in row["sweeps"]:
                 row["sweeps"][b] = mean_sweeps(loaded[b], entry, A, outs)
@@ -422,15 +415,13 @@ def one(label: str, libs: dict) -> dict:
                           f"vectors {vec:.3g}", file=sys.stderr)
             row["us"].setdefault(b, []).append(round(cs.device_ms(fn) * 1e3, 3))
         sites[site] = row
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    torch.save({k: v.cpu() for k, v in spy.args.items()},
-               os.path.join(ROOT, "chiprun_out", f"eig_sites_{label}.pt"))
     return dict(label=label, device=torch.cuda.get_device_name(0), init_frame=init_at,
                 keyframes=int(slam.map.n_keyframes()), relocalized=ok,
                 floor_us={str(t): round(v, 3) for t, v in floor_us.items()},
                 init_stages_us=init_stages[0], init_total_us=init_stages[1],
                 init_span_us=init_stages[2],
                 init_graph_ms=[round(x, 3) for x in graph_ms],
+                init_graph_host_ms=[round(x, 3) for x in host_ms],
                 reloc_stages_us=reloc_stages[0], reloc_total_us=reloc_stages[1],
                 reloc_span_us=reloc_stages[2], sites=sites,
                 ok=bool(np.all(ok)) and init_at is not None)
@@ -440,9 +431,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--write-parent", metavar="REV",
                     help="write the kernel source at git revision REV as the parent, and stop")
-    ap.add_argument("--order", nargs="+", default=["parent", "change"],
+    ap.add_argument("--order", nargs="+", default=["parent", "change", "change", "parent"],
                     help="the build each system run loads, one process a run, in this order")
-    ap.add_argument("--variant", nargs="*", default=[], help="study sources timed beside")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--libs", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -457,8 +447,6 @@ def main(argv=None) -> None:
                          "`python3 tools/eig_study.py --write-parent HEAD~1` in a git checkout")
     name = card()
     sources = {"parent": PARENT, "change": os.path.join(ROOT, REL_SOURCE), "_empty": EMPTY}
-    for path in args.variant:
-        sources[os.path.splitext(os.path.basename(path))[0]] = os.path.abspath(path)
     built, t0 = {}, time.perf_counter()
 
     def make(label, src):
@@ -474,7 +462,7 @@ def main(argv=None) -> None:
           f"({name})")
     for label in sources:
         for kern, props in ptxas_table(built[label][1]).items():
-            if re.search(r"(, [49]>|svd3|lanes)", kern):
+            if re.search(r"(, [49]>|svd3)", kern):
                 print(f"ptxas {label}: {kern}: {props}")
     libs = json.dumps({k: v[0] for k, v in built.items()})
     runs = []
@@ -493,7 +481,7 @@ def main(argv=None) -> None:
         print(f"[{label}] initialize_device eager, device us by stage (median of "
               f"{INIT_REPS}): {r['init_stages_us']}, all device us {r['init_total_us']}; "
               f"span on the device {r['init_span_us']}; graphed ms a call (events) "
-              f"{r['init_graph_ms']} ({name})")
+              f"{r['init_graph_ms']}, host ms a call {r['init_graph_host_ms']} ({name})")
         print(f"[{label}] _relocalize, units eager, device us by stage (median of {RELOCS}): "
               f"{r['reloc_stages_us']}, all device us {r['reloc_total_us']}; span on "
               f"the device {r['reloc_span_us']} ({name})")
