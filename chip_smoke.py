@@ -6,9 +6,9 @@ NVIDIA GPU.
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build of the Hamming-NN kernel and the small eigensolvers from
-     multicol_slam_tpu_torch/csrc with nvcc, one process a source, started
-     together, timed;
+  2. build of the Hamming-NN kernel, the small eigensolvers and the pose
+     LM from multicol_slam_tpu_torch/csrc with nvcc, one process a source,
+     started together, timed;
   3. both entries of the kernel against their plain PyTorch versions on
      the card, both variants: the dense-gate entry (hamming_nn) at the
      WORKING frame's shapes and ragged ones, with fully gated rows and
@@ -23,7 +23,9 @@ Phases, each fatal on failure:
      from frame 0 at the true pose, over 16 frames rendered on the card.
      Every frame must keep >= 15 local-map inliers and stay within 5 cm
      and 1 degree of ground truth, and the main path must launch the
-     window-gated entry twice per frame and the dense-gate entry never;
+     window-gated entry twice per frame, the dense-gate entry never, and
+     the pose LM kernel (csrc/pose_lm.cu) once at each of its two sites a
+     frame (PoseSpy);
   5. the first frames of that run against the port's CPU path (the plain
      Hamming-NN versions) on the same frames and map;
   6. the system from the first frame: MultiColSLAM(calib_dir=...) at its
@@ -215,7 +217,15 @@ Phases, each fatal on failure:
      launch masked; (b) torch.profiler and the host clock over 8 of those
      frames, eager against graphed: device operations and device ms a
      frame, busy share, ms a frame (median, p90; in turns eager, graphed,
-     graphed, eager); (c) every chunk of phase 11 (b)'s track_batch run
+     graphed, eager); then the eager step's device us and operations by
+     stage (extraction, motion matching, the motion pose LM, the frustum
+     check, local-map matching, the local-map pose LM; record_function
+     ranges, stage_device) over 4 frames with the pose LM kernel and with
+     its plain version (the parent's path: Part 0), and the graphed step
+     with each; the step and its two pose LM calls are each captured into
+     a CUDA graph of their own, whose kernel, copy and fill nodes count
+     its device operations exactly: the step's must fall by at least the
+     plain pose LM calls' less eight, at most four a kernel call; (c) every chunk of phase 11 (b)'s track_batch run
      again through the eager scan body on copies of its inputs:
      identical. After each system phase the script prints the graphs
      held, the captures (function, local-map bucket, seconds), their
@@ -284,6 +294,23 @@ Phases, each fatal on failure:
      eager and graphed, captures and replays by unit and phase, what the
      capture-ahead took and what captured after it; GP3P and the pose LM
      capture nothing on phase 7's relocalized frames.
+ 18. the pose LM kernel (csrc/pose_lm.cu: both LM rounds, the gate and
+     the final count in one launch, each round stopping on the device) at
+     every call of phases 6-9: PoseSpy counts its launches by site
+     (motion, local_map, reloc_local_map, previous_frame, reloc,
+     reloc_second_chance, capture_ahead) and PoseUnits keeps the inputs
+     of every unit call that reaches it; each is run again eagerly and
+     every pose LM call it makes is held to the plain version in float32
+     (pose within 1e-4, flipped inliers only with chi2 within 1e-3 of
+     huber^2; the iterations, over all calls, within the most the plain
+     version's or the kernel's move when the same rows run in four other
+     orders, or 2; costs printed) and, on the same rows in
+     float64, exactly (masks, counts and iterations equal, pose within
+     1e-10); the worst case per site is printed. Each site's first call
+     (and phase 4's two sites) is timed: device us a launch by CUDA-graph
+     replay beside the launch floor (an empty kernel of 512 threads), its
+     bound (about 520 operations a row a pass), the plain version's device
+     us and device operations a call, registers and local bytes.
 
 Each of phases 6, 7, 8, 9, 10, 11 (a) and (b), 12 (a) and (c), 13 (a)
 and 14 (a) sets the launch counts to 0 just before it drives its path and
@@ -315,6 +342,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import json
 import os
 import shutil
@@ -436,6 +464,14 @@ ASYNC_SITES = ("init", "init_mutual", "window_search", "motion", "local_map") + 
 CHUNK_SITES = ("chunk_motion", "chunk_local_map")
 GRAPH_MD_FRAMES = 3    # phase 14 (a): frames at phase 9's mdBRIEF settings
 PROFILE_FRAMES = 8     # phase 14 (b): frames profiled, eager and graphed
+STAGE_FRAMES = 4       # phase 14 (b): frames profiled by stage, each pose LM variant
+STAGE = "stage:"       # the prefix of a record_function range that names a stage
+# phase 14 (b): the WORKING step's stages (ROADMAP section 2 item 1 (a));
+# the pose LM's two calls are named by the function that makes them
+WORKING_STAGES = ("extraction", "motion_matching", "pose_lm_motion", "frustum",
+                  "local_map_matching", "pose_lm_local_map")
+POSE_LM_CALLERS = {"_motion_track_core": "pose_lm_motion",
+                   "_local_map_core": "pose_lm_local_map"}
 CHUNK = 8              # frames a chunk of track_batch
 # phase 15: LocalMapper's graphed units, the copies kept of each one's calls
 # in each recorded phase, and the bench's headline at a small size
@@ -567,6 +603,30 @@ EIG_VAL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 EIG_VEC_TOL = 1e-4
 EIG_GAP = 1e-3
 F64_OPS_S = 34e12              # H100 SXM float64 outside the tensor cores
+# the pose LM kernel (csrc/pose_lm.cu): the JAX package's compiled unit it
+# stands for (no Pallas kernel), its call sites (the function that calls
+# pose_optimization; the tracker's _pose_opt unit is named by its caller at
+# the call: PoseSpy.site), its bars against the plain version, its work
+POSE_SOURCE = "multicol_slam_tpu_torch/csrc/pose_lm.cu"
+POSE_REPLACES = "multicol_slam_tpu/models/optimizer.py:82"
+POSE_BASE = {"_motion_track_core": "motion", "_local_map_core": "local_map"}
+# the tracker's units that run pose_optimization, by their function's name
+POSE_UNIT_FNS = ("working_track_step", "working_scan_body", "_motion_track_core",
+                 "extract_motion_track_step", "_local_map_core", "pose_optimization")
+POSE_F64_POSE = 1e-10          # float64: pose; masks, counts, iterations equal
+POSE_F32_POSE = 1e-4           # float32: pose
+# a final robust cost under this (px^2) is an exact fit: there a step's gain
+# is rounding noise in float64 too, and the iterations are not held
+POSE_EXACT_COST = 1e-12
+POSE_F32_BAND = 1e-3           # float32: a flipped row's chi2 within this of huber^2
+# float32: the row orders, besides the recorded one, that measure how far
+# the iterations move when the same terms are summed in another order
+# (reversed, then seeded permutations); the kernel's iterations against the
+# plain version's are held within the largest such move, or 2
+POSE_ORDERS = 4
+POSE_F32_ITERS = 2
+POSE_PASS_OPS = 520            # floating-point operations a row a pass (csrc/pose_lm.cu)
+POSE_RECORDS: list = []        # phases 6-9: every call of a unit that runs the pose LM
 ENTRY = {"radius": "hamming_nn_radius", "dense": "hamming_nn"}
 SOURCE = "multicol_slam_tpu_torch/csrc/hamming_nn.cu"
 REPLACES = "multicol_slam_tpu/ops/pallas/hamming_nn.py:146"
@@ -1026,6 +1086,125 @@ class EigSpy:
         EigSpy.active = None
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+class PoseSpy:
+    """While entered, stands before ``optimizer.pose_optimization`` (the
+    kernel on the card): names each call's site (``site``), keeps each
+    site's first inputs (outside a capture), with ``keep_all`` every
+    call's, and counts its launches through graphs.on_launch, so at every
+    replay of a graph that holds it, by the spy active at the replay. The
+    tracker's relocalization is watched so that the second-chance round's
+    pose LM is told from the first (``second``). ``context`` adds a
+    recorded call's stack when a unit's call is run again (phase 18)."""
+
+    active = None
+    real = None                    # optimizer.pose_optimization, unpatched
+
+    def __init__(self, keep_all=False):
+        self.launches, self.first, self.calls = Counter(), {}, []
+        self.keep_all = keep_all
+        self.lock = threading.Lock()
+        self.second = False
+        self.context = ()
+
+    def site(self, base, names):
+        if base == "pose_opt":
+            if "capture_ahead" in names:
+                return "capture_ahead"
+            if "_relocalize" in names:
+                return "reloc_second_chance" if self.second else "reloc"
+            if "_track_previous_frame" in names:
+                return "previous_frame"
+            return base
+        if "working_scan_chunk" in names:
+            return "chunk_" + base
+        return ("reloc_" + base) if "_relocalize" in names else base
+
+    def _count(self, base):
+        site = self.site(base, _stack_names())
+        with self.lock:
+            self.launches[site] += 1
+
+    def __enter__(self):
+        from multicol_slam_tpu_torch.models import optimizer, tracking
+        from multicol_slam_tpu_torch.utils import graphs
+
+        if PoseSpy.real is None:
+            PoseSpy.real = optimizer.pose_optimization
+        real = PoseSpy.real
+
+        def pose_optimization(*a, **k):
+            base = POSE_BASE.get(sys._getframe(1).f_code.co_name, "pose_opt")
+            spy = PoseSpy.active
+            if spy is not None and not graphs.capturing():
+                site = spy.site(base, _stack_names() + list(spy.context))
+                rec = clone_tree((a, k))
+                with spy.lock:
+                    spy.first.setdefault(site, rec)
+                    if spy.keep_all:
+                        spy.calls.append((site, rec))
+            graphs.on_launch(lambda: PoseSpy.active is not None and PoseSpy.active._count(base))
+            return real(*a, **k)
+
+        T = tracking.Tracker
+        self.saved = (optimizer.pose_optimization, T._relocalize, T._reloc_project_candidate)
+        reloc, project = self.saved[1:]
+
+        def relocalize(tr):
+            self.second = False
+            try:
+                return reloc(tr)
+            finally:
+                self.second = False
+
+        def reloc_project(tr, kf):
+            self.second = True
+            return project(tr, kf)
+
+        optimizer.pose_optimization = pose_optimization
+        T._relocalize, T._reloc_project_candidate = relocalize, reloc_project
+        PoseSpy.active = self
+        return self
+
+    def __exit__(self, *exc):
+        from multicol_slam_tpu_torch.models import optimizer, tracking
+
+        PoseSpy.active = None
+        optimizer.pose_optimization = self.saved[0]
+        tracking.Tracker._relocalize, tracking.Tracker._reloc_project_candidate = self.saved[1:]
+
+
+class PoseUnits:
+    """While entered (inside a PoseSpy), keeps a copy of the inputs of every
+    call of a graphed unit that runs the pose LM (POSE_UNIT_FNS) made on
+    this thread, with the stack and the spy's ``second`` at the call, in
+    POSE_RECORDS; ``graphs.jit.__call__`` patched at the class, as
+    TrackerUnits does."""
+
+    def __init__(self, phase):
+        self.phase = phase
+        self.thread = threading.current_thread()
+
+    def __enter__(self):
+        from multicol_slam_tpu_torch.utils import graphs
+
+        self.orig = orig = graphs.jit.__call__
+
+        def call(g, *a, **k):
+            spy = PoseSpy.active
+            if spy is not None and threading.current_thread() is self.thread \
+                    and getattr(g.fn, "__name__", "") in POSE_UNIT_FNS:
+                POSE_RECORDS.append(dict(fn=g.fn, inputs=clone_tree((a, k)), phase=self.phase,
+                                         names=tuple(_stack_names()), second=spy.second))
+            return orig(g, *a, **k)
+
+        graphs.jit.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        from multicol_slam_tpu_torch.utils import graphs
+        graphs.jit.__call__ = self.orig
 
 
 def _stack_names():
@@ -3128,6 +3307,268 @@ def profiled(fn, n):
             [(e.key[:60], e.count, round(getattr(e, attr) / 1e3, 3)) for e in top])
 
 
+class Ranges:
+    """While entered, each target (owner, attribute, label) runs inside a
+    ``record_function`` range named STAGE + label."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+
+    def __enter__(self):
+        self.saved = []
+        for owner, attr, label in self.targets:
+            f = getattr(owner, attr)
+
+            def ranged(*a, _f=f, _label=label, **k):
+                with torch.profiler.record_function(STAGE + _label):
+                    return _f(*a, **k)
+            self.saved.append((owner, attr, f, attr in vars(owner)))
+            setattr(owner, attr, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, f, own in reversed(self.saved):
+            if own:
+                setattr(owner, attr, f)
+            else:
+                delattr(owner, attr)
+
+
+def stage_device(prof, within: str | None = None) -> tuple:
+    """({stage: device us}, {stage: device operations}, all device us, all
+    device operations, {stage: us from the stage's first kernel's start to
+    its last kernel's end}) of a profile. A device activity (kernel, copy,
+    fill) is traced to the host operation that launched it (its linked
+    correlation id) and counts in every STAGE range open on that thread at
+    that host moment. A kernel with no such link (a ctypes kernel: its
+    launch is no PyTorch operation) counts, if it is the pose LM kernel, in
+    the pose LM's stage ranges by order (the n-th launch in the n-th range
+    on the host, and in the ranges open around that one); any other such
+    kernel in every stage whose range holds it on the device's timeline,
+    where the profiler draws each range from its first kernel's start to
+    its last kernel's end. With ``within``, only activity inside that
+    stage counts in the others."""
+    from torch.autograd import DeviceType
+
+    evs = prof.profiler.kineto_results.events()
+    host = {e.correlation_id(): (e.start_ns(), e.start_thread_id()) for e in evs
+            if e.device_type() == DeviceType.CPU}
+    ranges = [(e.name()[len(STAGE):], e.start_ns(), e.end_ns(), e.start_thread_id())
+              for e in evs if e.device_type() == DeviceType.CPU and e.name().startswith(STAGE)]
+    dev_ranges = [(e.name()[len(STAGE):], e.start_ns(), e.end_ns()) for e in evs
+                  if e.device_type() == DeviceType.CUDA and e.name().startswith(STAGE)]
+    by_stage, ops, span = Counter(), Counter(), Counter()
+    total, n_ops = 0.0, 0
+    for lb, start, end in dev_ranges:
+        span[lb] += (end - start) / 1e3
+    acts = [e for e in evs
+            if e.device_type() == DeviceType.CUDA and not e.name().startswith(STAGE)]
+    launched = sorted((e for e in acts if "pose_lm" in e.name()
+                       and host.get(e.linked_correlation_id()) is None),
+                      key=lambda e: e.start_ns())
+    held = sorted((r for r in ranges if r[0].startswith("pose_lm")), key=lambda r: r[1])
+    own = {id(e): r for e, r in zip(launched, held)} if len(launched) == len(held) else {}
+    for e in acts:
+        us = e.duration_ns() / 1e3
+        total += us
+        n_ops += 1
+        at = host.get(e.linked_correlation_id())
+        hit = set() if at is None else {lb for lb, start, end, th in ranges
+                                        if th == at[1] and start <= at[0] <= end}
+        if not hit and id(e) in own:
+            _, at0, _, th0 = own[id(e)]          # its range, and those around it
+            hit = {lb for lb, start, end, th in ranges if th == th0 and start <= at0 <= end}
+        if not hit:
+            hit = {lb for lb, start, end in dev_ranges
+                   if start <= e.start_ns() and e.end_ns() <= end}
+        if within is not None and within not in hit:
+            continue
+        for lb in hit or {"(no stage)"}:
+            by_stage[lb] += us
+            ops[lb] += 1
+    return dict(by_stage), dict(ops), total, n_ops, dict(span)
+
+
+@contextlib.contextmanager
+def working_ranges(pose_fn):
+    """While entered, the WORKING step's stages (WORKING_STAGES but the
+    extraction, which is the step's argument) run inside STAGE ranges, and
+    ``pose_fn`` takes ``optimizer.pose_optimization``'s place, its two
+    calls named by their caller (POSE_LM_CALLERS)."""
+    from multicol_slam_tpu_torch.models import matcher, optimizer, tracking
+
+    def pose_lm(*a, **k):
+        label = POSE_LM_CALLERS.get(sys._getframe(1).f_code.co_name, "pose_lm_other")
+        with torch.profiler.record_function(STAGE + label):
+            return pose_fn(*a, **k)
+
+    saved = optimizer.pose_optimization
+    optimizer.pose_optimization = pose_lm
+    try:
+        with Ranges((tracking, "frustum_check", "frustum"),
+                    (matcher, "match_frame_to_frame", "motion_matching"),
+                    (matcher, "match_local_map", "local_map_matching")):
+            yield
+    finally:
+        optimizer.pose_optimization = saved
+
+
+def ranged_extract(extract):
+    def extraction(images):
+        with torch.profiler.record_function(STAGE + "extraction"):
+            return extract(images)
+    return extraction
+
+
+def working_stages(args, kw, pose_fn, n):
+    """The eager working_track_step on the recorded step arguments of n
+    frames, each frame profiled alone with ``pose_fn`` as the pose LM:
+    medians a frame of (device us by stage, device operations by stage,
+    all device us, all device operations, pose LM calls)."""
+    from multicol_slam_tpu_torch.models import tracking
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = []
+    for i in range(n):
+        a = (ranged_extract(args[i][0]),) + tuple(args[i][1:])
+        with working_ranges(pose_fn):
+            tracking.working_track_step(*a, **kw)     # outside the profile: warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tracking.working_track_step(*a, **kw)
+                torch.cuda.synchronize()
+        us, ops, total, n_ops, _ = stage_device(prof)
+        calls = sum(1 for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CPU
+                    and e.name().startswith(STAGE + "pose_lm"))
+        runs.append((us, ops, total, n_ops, calls))
+    med = lambda i: {lb: round(statistics.median(r[i].get(lb, 0) for r in runs), 3)
+                     for lb in WORKING_STAGES + ("(no stage)",)}
+    return (med(0), med(1), round(statistics.median(r[2] for r in runs), 3),
+            statistics.median(r[3] for r in runs), statistics.median(r[4] for r in runs))
+
+
+def plain_working_step(*a, **k):
+    """working_track_step with the pose LM's plain version in place of its
+    kernel: the step as the parent tree ran it."""
+    from multicol_slam_tpu_torch.models import optimizer, tracking
+
+    saved = optimizer.pose_optimization
+    optimizer.pose_optimization = optimizer.pose_optimization_reference
+    try:
+        return tracking.working_track_step(*a, **k)
+    finally:
+        optimizer.pose_optimization = saved
+
+
+# CUgraphNodeType: the nodes that are device operations; a child graph's
+# nodes count in their own types
+GRAPH_NODE_TYPES = {0: "kernel", 1: "copy", 2: "fill"}
+GRAPH_CHILD = 4
+
+
+def graph_nodes(cu, graph, counts: Counter) -> Counter:
+    """Add the nodes of the CUgraph ``graph`` to ``counts`` by type (a
+    child graph's nodes by theirs), through the driver library ``cu``."""
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            fail("cuGraphNodeGetType failed")
+        if kind.value == GRAPH_CHILD:
+            child = ctypes.c_void_p()
+            if cu.cuGraphChildGraphNodeGetGraph(ctypes.c_void_p(node), ctypes.byref(child)):
+                fail("cuGraphChildGraphNodeGetGraph failed")
+            graph_nodes(cu, child, counts)
+        else:
+            counts[GRAPH_NODE_TYPES.get(kind.value, f"type {kind.value}")] += 1
+    return counts
+
+
+def graph_operations(run, side) -> tuple:
+    """(device operations, nodes by type) of a CUDA graph captured from
+    ``run()`` on the stream ``side``, after a warm-up run there (which makes
+    the libraries' handles for that stream, as a capture cannot). A
+    graph's kernel, copy and fill nodes are the device operations ``run``
+    enqueues, counted exactly, where a profile of a replay of 25,000
+    kernels may drop records."""
+    cur = torch.cuda.current_stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        run()
+    cur.wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        run()
+    counts = graph_nodes(ctypes.CDLL("libcuda.so.1"), ctypes.c_void_p(graph.raw_cuda_graph()),
+                         Counter())
+    del graph
+    return sum(counts[k] for k in GRAPH_NODE_TYPES.values()), dict(counts)
+
+
+def step_pose_calls(args, kw) -> list:
+    """The (arguments, keywords) of each pose LM call of one eager
+    working_track_step on ``args``."""
+    from multicol_slam_tpu_torch.models import optimizer, tracking
+
+    calls, saved = [], optimizer.pose_optimization
+
+    def keep(*a, **k):
+        calls.append((a, k))
+        return saved(*a, **k)
+    optimizer.pose_optimization = keep
+    try:
+        tracking.working_track_step(*args, **kw)
+    finally:
+        optimizer.pose_optimization = saved
+    return calls
+
+
+def stage_report(args, kw, card, n, variants) -> dict:
+    """Phase 14 (b)'s breakdown, for each variant (label, the pose LM, a
+    graphed working_track_step that runs it): the eager step's device us
+    and operations a frame by stage over n frames (working_stages,
+    profiled); the device operations of the step, and of each of its pose
+    LM calls, captured on the first frame's inputs into a CUDA graph of
+    its own (graph_operations: exact); the graphed step's device ms a
+    frame over the n frames (each replay profiled alone). Printed;
+    returned by label."""
+    side = torch.cuda.Stream()
+    calls = step_pose_calls(args[0], kw)
+    out = {}
+    for label, pose_fn, graphed in variants:
+        us, ops, total, n_ops, n_calls = working_stages(args, kw, pose_fn, n)
+        step_ops, step_nodes = graph_operations(lambda: graphed.fn(*args[0], **kw), side)
+        lm_graph_ops = sum(graph_operations(lambda a=a, k=k: pose_fn(*a, **k), side)[0]
+                           for a, k in calls)
+        graphed(*args[0], **kw)               # a first call captures outside the profile
+        runs = [profiled(lambda _, i=i: graphed(*args[i], **kw), 1) for i in range(n)]
+        g_ms, g_wall = sum(r[1] for r in runs), sum(r[2] for r in runs)
+        top = runs[-1][3]
+        lm_us = sum(us[s] for s in WORKING_STAGES if s.startswith("pose_lm"))
+        lm_ops = sum(ops[s] for s in WORKING_STAGES if s.startswith("pose_lm"))
+        print(f"graph (b) {label}: the eager step by stage over {n} frames (median a frame): "
+              f"device us {us}, device operations {ops}; all {total} us, {n_ops} operations; "
+              f"pose LM calls a frame {n_calls}: {lm_us:.3f} us ({lm_us / max(total, 1e-9):.4f} "
+              f"of the step), {lm_ops} operations profiled. Captured on frame 1: the step "
+              f"{step_ops} device operations (nodes {step_nodes}), its {len(calls)} pose LM "
+              f"calls {lm_graph_ops} ({lm_graph_ops / max(len(calls), 1):.1f} a call). The "
+              f"graphed step: {g_ms / n:.3f} device ms a frame, busy {g_ms / g_wall:.4f}; top "
+              f"kernels {top} ({card})")
+        out[label] = dict(us=us, ops=ops, total_us=total, n_ops=n_ops, calls=n_calls,
+                          lm_us=lm_us, lm_ops=lm_ops, step_ops=step_ops,
+                          lm_graph_ops=lm_graph_ops, lm_graph_calls=len(calls),
+                          graphed_ms=g_ms / n)
+    return out
+
+
 def graph_phase(dev, knn, card, frames, gt, scans):
     """Phase 14: the compiled main path. (a) the graphed working_track_step
     against the eager one on phases 4-5's frames at the default settings
@@ -3136,8 +3577,8 @@ def graph_phase(dev, knn, card, frames, gt, scans):
     PROFILE_FRAMES frames, eager against graphed; (c) phase 11 (b)'s
     track_batch chunks, each run again through the eager scan on copies of
     its inputs: identical. Returns the sites' kernel JSON entries."""
-    from multicol_slam_tpu_torch.models import tracking
-    from multicol_slam_tpu_torch.utils import config_io
+    from multicol_slam_tpu_torch.models import optimizer, tracking
+    from multicol_slam_tpu_torch.utils import config_io, graphs
 
     t_a = time.perf_counter()
     args, kw, step, entries, _ = graph_runs(
@@ -3165,6 +3606,25 @@ def graph_phase(dev, knn, card, frames, gt, scans):
               f"{percentiles(ms[name])}; top kernels (name, launches, device ms) {top} ({card})")
     print(f"graph (b) one graphed call between two events: "
           f"{cuda_ms(lambda: runs['graphed'](0), reps=10, warm=2):.3f} ms ({card})")
+    # Part 0 and the step by stage: the kernel's pose LM against the plain
+    # version's (the parent's path), eager by stage and each in a graph
+    report = stage_report(args, kw, card, STAGE_FRAMES, [
+        ("kernel", optimizer.pose_optimization, step),
+        ("plain", optimizer.pose_optimization_reference, graphs.jit(plain_working_step))])
+    k, p = report["kernel"], report["plain"]
+    drop, need = p["step_ops"] - k["step_ops"], p["lm_graph_ops"] - 8
+    per_call = k["lm_graph_ops"] / max(k["lm_graph_calls"], 1)
+    print(f"graph (b): the step's device operations a frame (its CUDA graph's nodes) "
+          f"{p['step_ops']} with the plain pose LM, {k['step_ops']} with the kernel: down "
+          f"{drop}, against Part 0's pose LM operations a frame (the plain calls' graphs) less "
+          f"eight, {need}; the kernel's pose LM device operations a call {per_call:.2f}; "
+          f"graphed device ms a frame {p['graphed_ms']:.3f} -> {k['graphed_ms']:.3f}; eager "
+          f"step device us {p['total_us']:.1f} -> {k['total_us']:.1f}, pose LM "
+          f"{p['lm_us']:.1f} -> {k['lm_us']:.1f} ({card})")
+    if drop < need or per_call > 4 or k["calls"] != 2 or k["lm_graph_calls"] != 2:
+        fail(f"graph (b): the kernel's step dropped {drop} device operations a frame "
+             f"(want >= {need}), {per_call:.2f} a pose LM call (want <= 4) over "
+             f"{k['calls']} calls a frame profiled, {k['lm_graph_calls']} recorded")
     t_c = time.perf_counter()
 
     # (c) the tracker's chunks against the eager scan on the same inputs
@@ -3777,6 +4237,264 @@ def tracker_graph_phase(dev, card, slam, frames, eig_spies, eig_launches):
     return entries
 
 
+def pose_f64(a, k):
+    """pose_optimization's arguments (rig, mt0, obs, X) with every float in
+    float64."""
+    from multicol_slam_tpu_torch.models import optimizer
+
+    rig, mt0, obs, X = a[:4]
+    up = lambda t: t.double() if t.is_floating_point() else t
+    return (rig_f64(rig), up(mt0), optimizer.BAObservations(*(up(t) for t in obs)),
+            up(X)) + tuple(a[4:]), k
+
+
+def pose_cost(rig, obs, X, mt, inlier, huber):
+    """The robust cost at ``mt`` over ``inlier``, in float64."""
+    from multicol_slam_tpu_torch.models import optimizer
+
+    (rig, mt, obs, X), _ = pose_f64((rig, mt, obs, X), {})
+    return float(optimizer.pose_lm_parts(rig, obs, X, huber)[0](mt, inlier)[1])
+
+
+def flip_band(rig, obs, X, huber, mt, flipped):
+    """The largest |chi2 - huber^2| / huber^2 at ``mt`` over the rows
+    ``flipped`` (0 when there is none)."""
+    from multicol_slam_tpu_torch.models import optimizer
+
+    if not bool(flipped.any()):
+        return 0.0
+    chi2 = optimizer.pose_lm_parts(rig, obs, X, huber)[0](mt, obs.valid)[0]
+    d2 = huber * huber
+    return float(((chi2[flipped] - d2).abs() / d2).max())
+
+
+def graphed_plain_pose():
+    """optimizer.pose_optimization_reference under one graphs.jit wrapper,
+    made at the first call: a replay gives the eager call's outputs bit for
+    bit (pose_compare checks it on every recorded call) at its device time,
+    without its 11,000 dispatches from the host."""
+    if not hasattr(graphed_plain_pose, "jit"):
+        from multicol_slam_tpu_torch.models import optimizer
+        from multicol_slam_tpu_torch.utils import graphs
+        graphed_plain_pose.jit = graphs.jit(optimizer.pose_optimization_reference)
+    return graphed_plain_pose.jit
+
+
+def row_orders(n, device) -> list:
+    """POSE_ORDERS orders of n rows: reversed, then seeded permutations."""
+    gen = torch.Generator().manual_seed(0)
+    return [torch.arange(n - 1, -1, -1, device=device)] + [
+        torch.randperm(n, generator=gen).to(device) for _ in range(POSE_ORDERS - 1)]
+
+
+def pose_compare(what, a, k):
+    """The kernel (PoseSpy.real on CUDA tensors) against the plain version
+    on one recorded call's inputs, on the same rows in float64 and in their
+    own dtype; fails beyond the bars (POSE_*). Float64: masks, counts and
+    iterations equal, pose within POSE_F64_POSE; where the inliers fit
+    exactly (the plain version's final cost under POSE_EXACT_COST), a gain
+    compares rounding noise, so there the iterations are printed and not
+    held. Float32: round 1 alone
+    (iters2=0, whose inliers are the gate round 2 runs on) within
+    POSE_F32_POSE; a row on which the two gates or the two final masks
+    differ within POSE_F32_BAND of huber^2 (at the plain version's pose);
+    and, where the two gates agree, the final poses within POSE_F32_POSE.
+    Where a gate row flips, round 2 solves another problem, so the final
+    poses are printed and not held. In float32 a round stops at the first
+    accepted step that gains under 1e-6, below the rounding of a float32
+    cost sum, so where it stops depends on the order of the sums: the
+    plain version (graphed_plain_pose, first held to its eager call on the
+    recorded rows) and the kernel each run again on the rows in
+    POSE_ORDERS other orders (row_orders), and their moves in iterations
+    (``order_it_diff``, ``kernel_order_it_diff``) are measured beside the
+    kernel's against the plain version (``it_delta``), which pose_phase
+    holds to them. The robust costs at the two poses (``cost_rel``) are
+    printed. Returns the measures."""
+    from multicol_slam_tpu_torch.models import optimizer
+
+    huber = k.get("huber", optimizer.HUBER_POSE)
+    out = {}
+    for tag, (aa, kk) in (("f64", pose_f64(a, k)), ("f32", (a, k))):
+        rig, mt0, obs, X = aa[:4]
+        got = PoseSpy.real(*aa, **kk)
+        want = optimizer.pose_optimization_reference(*aa, **kk)
+        mt, inl, n_in, it = got
+        p_mt, p_inl, p_n, p_it = want
+        err = float((mt.double() - p_mt.double()).abs().max())
+        flipped = inl != p_inl
+        m = dict(pose_err=err, flipped=int(flipped.sum()), iterations=(int(it), int(p_it)),
+                 rows=int(obs.uv.shape[0]), valid=int(obs.valid.sum()))
+        if [t.dtype for t in got] != [t.dtype for t in want] \
+                or [t.shape for t in got] != [t.shape for t in want]:
+            fail(f"{what}: the kernel's outputs {[(t.dtype, tuple(t.shape)) for t in got]} "
+                 f"against the plain version's {[(t.dtype, tuple(t.shape)) for t in want]}")
+        if mt0.dtype == torch.float64:
+            m["exact_fit"] = pose_cost(rig, obs, X, p_mt, p_inl, huber) < POSE_EXACT_COST
+            if err > POSE_F64_POSE or m["flipped"] or int(n_in) != int(p_n) \
+                    or (int(it) != int(p_it) and not m["exact_fit"]):
+                fail(f"{what} (float64): the kernel against the plain version {m}; bars: "
+                     f"pose {POSE_F64_POSE}, masks, counts and, short of an exact fit, "
+                     f"iterations equal")
+        else:
+            one = dict(kk, iters2=0)
+            r1, p_r1 = PoseSpy.real(*aa, **one), optimizer.pose_optimization_reference(*aa, **one)
+            gate = r1[1] != p_r1[1]
+            m.update(round1_err=float((r1[0].double() - p_r1[0].double()).abs().max()),
+                     gate_flipped=int(gate.sum()),
+                     gate_band=flip_band(rig, obs, X, huber, p_r1[0], gate))
+            if not m["gate_flipped"]:
+                m["flip_band"] = flip_band(rig, obs, X, huber, p_mt, flipped)
+            plain = graphed_plain_pose()
+            replay = plain(*aa, **kk)
+            if any(not torch.equal(x, y) for x, y in zip(replay, want)):
+                fail(f"{what}: the graphed plain version's replay differs from its eager call")
+            moved = [(rig, mt0, optimizer.BAObservations(*(t[rows] for t in obs)), X)
+                     + tuple(aa[4:]) for rows in row_orders(obs.uv.shape[0], obs.uv.device)]
+            m.update(it_delta=int(it) - int(p_it),
+                     order_deltas=[int(plain(*b, **kk)[3]) - int(p_it) for b in moved],
+                     kernel_order_deltas=[int(PoseSpy.real(*b, **kk)[3]) - int(it)
+                                          for b in moved])
+            ca = pose_cost(rig, obs, X, mt, p_inl, huber)
+            cb = pose_cost(rig, obs, X, p_mt, p_inl, huber)
+            m["cost_rel"] = abs(ca - cb) / max(abs(cb), 1e-30)
+            if m["round1_err"] > POSE_F32_POSE or m["gate_band"] > POSE_F32_BAND \
+                    or m.get("flip_band", 0.0) > POSE_F32_BAND \
+                    or (not m["gate_flipped"] and err > POSE_F32_POSE):
+                fail(f"{what} (float32): the kernel against the plain version {m}; bars: "
+                     f"round 1 and, where the gates agree, the pose within {POSE_F32_POSE}; "
+                     f"flipped gate or final rows within {POSE_F32_BAND} of huber^2")
+        out[tag] = m
+    return out
+
+
+def pose_entry(site, inputs, launches, card, floor_ms, worst=None):
+    """Compare, time and bound the pose LM kernel on one call site's
+    recorded input on the card: device us a launch by CUDA-graph replay,
+    beside the launch floor, the plain version's device us and device
+    operations a call, the bound (operations: POSE_PASS_OPS a row a pass
+    over this input's passes; bytes: each input read once, each output
+    written once), registers and local bytes. Returns its entry of the
+    kernels line; ``worst`` (the site's worst measures over its recorded
+    calls) goes into it."""
+    from multicol_slam_tpu_torch.kernels import pose_lm
+    from multicol_slam_tpu_torch.models import optimizer
+
+    a, k = inputs
+    m = pose_compare(f"pose_lm@{site}", a, k)
+    rig, mt0, obs, X = a[:4]
+    kernel = lambda: PoseSpy.real(*a, **k)
+    plain = lambda: optimizer.pose_optimization_reference(*a, **k)
+    ms = device_ms(kernel)
+    plain_ms = device_ms(plain, reps=2, rounds=3)
+    plain_ops = profiled(lambda i: plain(), 1)[0]
+    it = int(kernel()[3])
+    K = obs.uv.shape[0]
+    passes = it + 3
+    size = mt0.element_size()
+    floats_in = (rig.M_c.numel() + sum(f.numel() for f in rig.cams[:5])
+                 + rig.cams.inv_poly.numel() + 6 + obs.uv.numel() + K + X.numel())
+    # floats, the int32 camera and point indices and the bool validity in;
+    # the pose, the bool inliers, the int64 count and int32 iterations out
+    moved = floats_in * size + 8 * K + K + 6 * size + K + 8 + 4
+    flops = K * passes * POSE_PASS_OPS
+    peak = F32_OPS_S if mt0.dtype == torch.float32 else F64_OPS_S
+    t_bytes, t_ops = moved / HBM_BYTES_S * 1e3, flops / peak * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    attrs = pose_lm.kernel_attributes(mt0.dtype, mt0.device)
+    worst = worst or m
+    print(f"pose_lm@{site}: {K} rows ({int(obs.valid.sum())} valid) {mt0.dtype}, {launches} "
+          f"launches, {it} iterations ({passes} passes): device {ms * 1e3:.2f} us a launch "
+          f"(the launch floor {floor_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.4f} us, "
+          f"{bound_by}), the plain version {plain_ms * 1e3:.2f} device us and {plain_ops} "
+          f"device operations a call; {attrs}; against the plain version {m}; worst over "
+          f"the site's calls {worst} ({card})")
+    return {"name": f"pose_lm@{site}", "route": "cuda", "source": POSE_SOURCE,
+            "replaces": POSE_REPLACES,
+            "replaces_note": "no Pallas kernel: the JAX package's jitted pose LM "
+                             "(multicol_slam_tpu/models/optimizer.py:82-165, two "
+                             "lax.while_loop rounds), which XLA compiles into a few fused "
+                             "device loops",
+            "launches": launches, "max_abs_err": max(worst["f32"]["pose_err"],
+                                                     worst["f64"]["pose_err"]),
+            "ms": ms, "plain_ms": plain_ms, "plain_ops": plain_ops, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "library": "none: no single PyTorch call computes it", "floor_ms": floor_ms,
+            "registers": attrs["registers"], "local_bytes": attrs["local_bytes"],
+            "rows": K, "iterations": it, "dtype": str(mt0.dtype).replace("torch.", ""),
+            "worst": worst}
+
+
+def pose_phase(card, spy):
+    """Phase 18: every pose_optimization call of phases 6-9. Each recorded
+    call of a unit that runs the pose LM (PoseUnits) runs again eagerly
+    under a PoseSpy that keeps every pose LM call's inputs, named by the
+    recorded call's stack; each of those calls, the kernel against the
+    plain version in its dtype and in float64 (pose_compare), the worst
+    case per site printed; then each site's first call timed and bounded
+    (pose_entry) with the launches ``spy`` counted over phases 6-9.
+    Returns the kernel JSON entries."""
+    rerun = PoseSpy(keep_all=True)
+    with rerun:
+        for r in POSE_RECORDS:
+            a, k = r["inputs"]
+            rerun.context, rerun.second = r["names"], r["second"]
+            if r["fn"].__name__ == "pose_optimization":
+                rerun.calls.append((rerun.site("pose_opt", r["names"]), (a, k)))
+            else:
+                r["fn"](*a, **k)
+    POSE_RECORDS.clear()
+    by_site = {}
+    for site, (a, k) in rerun.calls:
+        m = pose_compare(f"phase 18: pose_lm@{site}", a, k)
+        w = by_site.setdefault(site, dict(calls=0, f32=dict(pose_err=0.0, flipped=0,
+                                                            round1_err=0.0, gate_flipped=0,
+                                                            gate_flips_calls=0,
+                                                            cost_rel=0.0),
+                                          f64=dict(pose_err=0.0), deltas={}, first=(a, k)))
+        w["calls"] += 1
+        for key in ("pose_err", "flipped", "round1_err", "gate_flipped", "cost_rel"):
+            w["f32"][key] = max(w["f32"][key], m["f32"][key])
+        w["f32"]["gate_flips_calls"] += bool(m["f32"]["gate_flipped"])
+        for key in ("it_delta", "order_deltas", "kernel_order_deltas"):
+            w["deltas"].setdefault(key, []).extend(np.atleast_1d(m["f32"][key]).tolist())
+        w["f64"]["exact_fits"] = w["f64"].get("exact_fits", 0) + m["f64"]["exact_fit"]
+        w["f64"]["it_diff"] = max(w["f64"].get("it_diff", 0),
+                                  abs(m["f64"]["iterations"][0] - m["f64"]["iterations"][1]))
+        w["f64"]["pose_err"] = max(w["f64"]["pose_err"], m["f64"]["pose_err"])
+    spread = lambda ds: dict(max_abs=max(map(abs, ds)), mean=round(statistics.mean(ds), 3))
+    for site, w in by_site.items():
+        w["f32"]["iterations"] = {key: spread(ds) for key, ds in w["deltas"].items()}
+        print(f"phase 18: pose_lm@{site}: {w['calls']} recorded calls, each within the bars; "
+              f"worst float32 {w['f32']} (gate_flips_calls: calls whose round-2 gate differs "
+              f"on a row at huber^2, whose final pose is not held; iterations: the kernel's "
+              f"against the plain version's (it_delta), the plain version's and the "
+              f"kernel's own under {POSE_ORDERS} other row orders; the costs' relative "
+              f"difference printed, not held), float64 {w['f64']} with equal masks and, "
+              f"short of an exact fit, iterations")
+    pooled = {key: spread([d for w in by_site.values() for d in w["deltas"][key]])
+              for key in ("it_delta", "order_deltas", "kernel_order_deltas")}
+    allowed = max(POSE_F32_ITERS, pooled["order_deltas"]["max_abs"],
+                  pooled["kernel_order_deltas"]["max_abs"])
+    print(f"phase 18: float32 iterations over all {sum(w['calls'] for w in by_site.values())} "
+          f"calls: the kernel against the plain version {pooled['it_delta']}; the plain "
+          f"version against itself under {POSE_ORDERS} other row orders "
+          f"{pooled['order_deltas']}, the kernel against itself {pooled['kernel_order_deltas']}"
+          f"; held within {allowed} (the larger move under reordering, or {POSE_F32_ITERS})")
+    if pooled["it_delta"]["max_abs"] > allowed:
+        fail(f"phase 18: the kernel's float32 iterations part from the plain version's by "
+             f"{pooled['it_delta']['max_abs']}, beyond the {allowed} a reordering of the "
+             f"rows moves them")
+    missing = [s for s in spy.launches if s not in by_site]
+    if missing or not {"motion", "local_map", "previous_frame", "reloc",
+                       "reloc_second_chance"} <= set(by_site):
+        fail(f"phase 18: pose LM sites launched {dict(spy.launches)}, recorded "
+             f"{sorted(by_site)}")
+    floor_ms = launch_floor_ms(EMPTY["lib"], threads=512)
+    return [pose_entry(site, w["first"], spy.launches[site], card, floor_ms,
+                       worst={"f32": w["f32"], "f64": w["f64"]})
+            for site, w in by_site.items()]
+
+
 def reloc_error(m, poses, gt, at, i):
     """(m, degrees): frame i's returned pose (poses: frame -> (4, 4) or
     None) against ground truth, both relative to frame at - 1: its pose in
@@ -3863,7 +4581,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on an NVIDIA GPU only")
     from multicol_slam_tpu_torch.kernels import hamming_nn as knn
-    from multicol_slam_tpu_torch.kernels import small_eig
+    from multicol_slam_tpu_torch.kernels import pose_lm, small_eig
     from multicol_slam_tpu_torch.models import matcher, tracking
     from multicol_slam_tpu_torch.utils import config_io, synthetic
 
@@ -3890,7 +4608,7 @@ def main() -> None:
 
     # -- 2. build: one nvcc a source, all started together -------------------
     t0 = time.perf_counter()
-    builds = [threading.Thread(target=lib.load_library) for lib in (knn, small_eig)]
+    builds = [threading.Thread(target=lib.load_library) for lib in (knn, small_eig, pose_lm)]
     builds.append(threading.Thread(target=lambda: EMPTY.update(lib=empty_library(knn))))
     for b in builds:
         b.start()
@@ -3898,9 +4616,10 @@ def main() -> None:
         b.join()
     knn.load_library()          # raises here if its build failed
     small_eig.load_library()
+    pose_lm.load_library()
     if "lib" not in EMPTY:
         EMPTY["lib"] = empty_library(knn)
-    print(f"kernel build s {time.perf_counter() - t0:.3f}, the two kernel sources and "
+    print(f"kernel build s {time.perf_counter() - t0:.3f}, the three kernel sources and "
           f"{EMPTY_SOURCE} at once ({card})")
     mark("2 build")
 
@@ -3943,9 +4662,10 @@ def main() -> None:
     torch.cuda.synchronize()
     # the main path, counted: one chunk over B frames
     reset_launches(knn)
+    pose_lm.pose_lm.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with SiteSpy(knn, matcher) as spy:
+    with SiteSpy(knn, matcher) as spy, PoseSpy() as pose_spy:
         carry, ys = run_chunk(extract, rig, frames[1:], st, params, settings, tcfg)
     torch.cuda.synchronize()
     chunk_s = time.perf_counter() - t0
@@ -3953,6 +4673,10 @@ def main() -> None:
     if launches != 2 * B or knn.hamming_nn.launches:
         fail(f"hamming_nn_radius launched {launches} times and hamming_nn "
              f"{knn.hamming_nn.launches} over {B} frames, want {2 * B} and 0")
+    if pose_lm.pose_lm.launches != 2 * B or dict(pose_spy.launches) != {
+            "chunk_motion": B, "chunk_local_map": B}:
+        fail(f"pose_lm launched {pose_lm.pose_lm.launches} times over {B} frames, by site "
+             f"{dict(pose_spy.launches)}; want {B} at each of the two")
     wf_entries = [site_entry(knn, f"working_{site}", *spy.args["chunk_" + site],
                              spy.launches["chunk_" + site], card)
                   for site in ("motion", "local_map")]
@@ -4021,30 +4745,37 @@ def main() -> None:
 
     # -- 6. the system from the first frame ---------------------------------
     # the small eigensolvers' path is the bootstrap and the relocalization:
-    # their counts from 0 over phases 6-7
+    # their counts from 0 over phases 6-7; the pose LM's every call over
+    # phases 6-9, each site's launches counted (phase 18)
     small_eig.sym_eig.launches = small_eig.svd3.launches = 0
-    with EigSpy() as eig_spy:
-        slam, frames, gt, poses, sys_entries, sys_ref = system_phase(dev, knn, card)
-        graph_line("phase 6")
-        mark("6 system")
+    pose_lm.pose_lm.launches = 0
+    with PoseSpy() as sys_pose_spy, PoseUnits("phases 6-9"):
+        with EigSpy() as eig_spy:
+            slam, frames, gt, poses, sys_entries, sys_ref = system_phase(dev, knn, card)
+            graph_line("phase 6")
+            mark("6 system")
 
-        # -- 7. relocalization -----------------------------------------------
-        reloc_entries = reloc_phase(knn, card, slam, frames, gt, poses)
-        mark("7 relocalization")
-    eig_launches = (small_eig.sym_eig.launches, small_eig.svd3.launches)
+            # -- 7. relocalization -------------------------------------------
+            reloc_entries = reloc_phase(knn, card, slam, frames, gt, poses)
+            mark("7 relocalization")
+        eig_launches = (small_eig.sym_eig.launches, small_eig.svd3.launches)
 
-    # -- 8. loop closing -----------------------------------------------------
-    # the small eigensolvers' third path: the loop closer's Sim3 RANSAC
-    small_eig.sym_eig.launches = small_eig.svd3.launches = 0
-    with EigSpy() as loop_eig_spy:
-        loop_entries, loop_times = loop_phase(knn, card, slam)
-    loop_eig_launches = (small_eig.sym_eig.launches, small_eig.svd3.launches)
-    mark("8 loop closing")
+        # -- 8. loop closing -------------------------------------------------
+        # the small eigensolvers' third path: the loop closer's Sim3 RANSAC
+        small_eig.sym_eig.launches = small_eig.svd3.launches = 0
+        with EigSpy() as loop_eig_spy:
+            loop_entries, loop_times = loop_phase(knn, card, slam)
+        loop_eig_launches = (small_eig.sym_eig.launches, small_eig.svd3.launches)
+        mark("8 loop closing")
 
-    # -- 9. the mdBRIEF system -------------------------------------------------
-    md_entries = mdbrief_phase(dev, knn, card, frames, gt)
-    graph_line("phase 9")
-    mark("9 mdBRIEF system")
+        # -- 9. the mdBRIEF system ---------------------------------------------
+        md_entries = mdbrief_phase(dev, knn, card, frames, gt)
+        graph_line("phase 9")
+        mark("9 mdBRIEF system")
+    if pose_lm.pose_lm.launches != sum(sys_pose_spy.launches.values()) \
+            or not pose_lm.pose_lm.launches:
+        fail(f"pose_lm launched {pose_lm.pose_lm.launches} times over phases 6-9, its sites "
+             f"{dict(sys_pose_spy.launches)}")
 
     # -- 10. the organic loop closure ------------------------------------------
     organic_entries, organic_checks = organic_phase(dev, knn, card)
@@ -4102,12 +4833,20 @@ def main() -> None:
     graph_line("phase 17")
     mark("17 tracker graphs")
 
+    # -- 18. the pose LM kernel at every call site of phases 6-9 -------------------
+    floor_ms = launch_floor_ms(EMPTY["lib"], threads=512)
+    pose_entries = [pose_entry(f"working_{site}", pose_spy.first["chunk_" + site],
+                               pose_spy.launches["chunk_" + site], card, floor_ms)
+                    for site in ("motion", "local_map")]
+    pose_entries += pose_phase(card, sys_pose_spy)
+    mark("18 pose LM")
+
     print(f"wall s by phase {phase_s}, whole script {time.perf_counter() - t_script:.3f} "
           f"({card})")
     print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries
                       + md_entries + organic_entries + async_entries + ring_entries
                       + dyn_entries + room_entries + graph_entries + mapping_entries
-                      + loop_graph_entries + tracker_entries}))
+                      + loop_graph_entries + tracker_entries + pose_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

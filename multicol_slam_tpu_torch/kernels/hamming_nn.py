@@ -79,11 +79,13 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def build(source: str, stem: str) -> str:
-    """The shared library of a kernel source, built with ``nvcc`` into
-    ``BUILD_DIR`` once per version of the source and flags; its path."""
+def build(source: str, stem: str, extra: tuple = ()) -> str:
+    """The shared library of a kernel source, built with ``nvcc`` (NVCC_FLAGS
+    and the source's ``extra`` flags) into ``BUILD_DIR`` once per version
+    of the source and flags; its path."""
+    flags = [*NVCC_FLAGS, *extra]
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()
                                 ).hexdigest()[:12]
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
@@ -91,7 +93,7 @@ def build(source: str, stem: str) -> str:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+            proc = subprocess.run([_nvcc(), *flags, "-o", tmp, source],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed to build {os.path.basename(source)}:\n"

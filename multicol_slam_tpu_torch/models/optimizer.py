@@ -9,9 +9,15 @@ self-calibrating variants, ``refine_intrinsics`` and
 g2o_MultiCol_vertices_edges.h:41-145). Pose LM (cOptimizer.cpp:259-458):
 residual m - pi_cam((M_t M_c)^-1 X) per observation, Huber IRLS weights,
 two LM rounds with a chi2 > delta^2 outlier gate between them, and gain
-termination at 1e-6. The JAX package's ``lax.while_loop`` becomes a fixed
-``iters``-step loop of masked updates, so the device never waits for the
-host: the pose and the iteration count come out the same,
+termination at 1e-6. On a CUDA tensor ``pose_optimization`` is one launch
+of a hand-written kernel (``kernels/pose_lm.py``, ``csrc/pose_lm.cu``)
+that stops each round on the device as the JAX package's
+``lax.while_loop`` does, with the same pose and, in float64, the same
+iteration count (a float32 round's stop rests on a gain below the
+rounding of its cost, so it moves with the order of the sums). Its plain
+version, ``pose_optimization_reference`` (the CPU's path), turns the loop
+into a fixed ``iters``-step loop of masked updates, so the device never
+waits for the host: the pose and the iteration count come out the same,
 since a round's state freezes, and ``it`` stops growing, once it is done.
 
 The JAX package differentiates the residual with ``jax.jacfwd``; here the
@@ -28,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import pose_lm
 from ..ops.camera import CameraModel, world_to_img
 from ..ops.geometry import (cayley2hom, cayley2rot, cayley_rot_grads, horner,
                             inv3x3, inv_se3)
@@ -156,7 +163,22 @@ def pose_optimization(rig: Rig, mt_min0: torch.Tensor, obs: BAObservations,
                       iters1: int = 10, iters2: int = 10):
     """Optimize the body pose (6,) against fixed points X_world (P, 3)
     indexed by obs.pt. Returns (mt_min, inlier mask (K,), n_inliers,
-    n_iterations), all tensors on the inputs' device."""
+    n_iterations), all tensors on the inputs' device: on a CPU tensor the
+    plain version's (``pose_optimization_reference``), on a CUDA tensor
+    the pose LM kernel's (``kernels/pose_lm.py``: one launch)."""
+    if mt_min0.device.type == "cpu":
+        return pose_optimization_reference(rig, mt_min0, obs, X_world, huber=huber,
+                                           iters1=iters1, iters2=iters2)
+    return pose_lm.pose_lm(rig, mt_min0, obs, X_world, huber=huber, iters1=iters1,
+                           iters2=iters2, tau=LM_TAU, gain_eps=GAIN_EPS)
+
+
+def pose_lm_parts(rig: Rig, obs: BAObservations, X_world: torch.Tensor, huber: float):
+    """The plain pose LM's evaluations at a pose ``mt`` (6,) over the rows
+    of ``w_valid`` (K,): ``chi2_of(mt, w_valid)`` -> (chi2 (K,), the Huber
+    cost), ``hess(mt, w_valid)`` -> (J^T W J (6, 6), J^T W r (6,)) and its
+    terms by row, ``rows(mt, w_valid)`` -> (r (K, 2), J (K, 2, 6), the
+    Huber weight W (K,), 0 outside ``w_valid``)."""
     delta2 = huber * huber
     cam_idx = obs.cam.long()
     cams = rig.cams.index(cam_idx)                          # fields (K,)
@@ -175,15 +197,30 @@ def pose_optimization(rig: Rig, mt_min0: torch.Tensor, obs: BAObservations,
         rho = torch.where(e <= huber, chi2, 2 * huber * e - delta2)
         return chi2, torch.where(w_valid, rho, torch.zeros_like(rho)).sum()
 
-    def hess(mt, w_valid):
+    def rows(mt, w_valid):
         r = residuals(mt)
         J = pose_jacobian(mt, Mc, X, cams)                   # (K, 2, 6)
         chi2 = (r * r).sum(-1) * obs.inv_sigma2
         w = _huber_w(chi2, huber) * obs.inv_sigma2
-        w = torch.where(w_valid, w, torch.zeros_like(w))
+        return r, J, torch.where(w_valid, w, torch.zeros_like(w))
+
+    def hess(mt, w_valid):
+        r, J, w = rows(mt, w_valid)
         H = torch.einsum("kri,k,krj->ij", J, w, J)
         g = torch.einsum("kri,k,kr->i", J, w, r)
         return H, g
+
+    return chi2_of, hess, rows
+
+
+def pose_optimization_reference(rig: Rig, mt_min0: torch.Tensor, obs: BAObservations,
+                                X_world: torch.Tensor, *, huber: float = HUBER_POSE,
+                                iters1: int = 10, iters2: int = 10):
+    """The plain version of ``pose_optimization`` (its path on the CPU):
+    each round a fixed loop of ``iters`` masked updates that freezes once
+    the round is done."""
+    delta2 = huber * huber
+    chi2_of, hess, _ = pose_lm_parts(rig, obs, X_world, huber)
 
     def lm_round(mt, w_valid, iters):
         _, cost = chi2_of(mt, w_valid)

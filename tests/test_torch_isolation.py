@@ -31,6 +31,7 @@ SLICE_MODULES = [
     "multicol_slam_tpu_torch.ops.se3_np",
     "multicol_slam_tpu_torch.ops.sim3",
     "multicol_slam_tpu_torch.kernels.hamming_nn",
+    "multicol_slam_tpu_torch.kernels.pose_lm",
     "multicol_slam_tpu_torch.models.extractor",
     "multicol_slam_tpu_torch.models.matcher",
     "multicol_slam_tpu_torch.models.optimizer",

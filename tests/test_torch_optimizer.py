@@ -29,52 +29,18 @@ from multicol_slam_tpu.models import optimizer as jopt
 from multicol_slam_tpu.ops import rig as jrig
 from multicol_slam_tpu.utils import config_io as jcio
 from multicol_slam_tpu_torch.models import optimizer as topt
-from multicol_slam_tpu_torch.ops.camera import img_to_world, world_to_img
+from multicol_slam_tpu_torch.ops.camera import world_to_img
 from multicol_slam_tpu_torch.ops.geometry import cayley2hom, inv_se3
-from multicol_slam_tpu_torch.ops.rig import mt_mc
 from multicol_slam_tpu_torch.utils import config_io as tcio
 from multicol_slam_tpu_torch.utils import convert
 
 import _torchutil as U
+from _poseutil import problem as _problem
 
 
 def _jax_rig(np_dtype):
     full, _ = jcio.load_mcs(tcio.SYNTH_RIG_DIR, dtype=np_dtype)
     return jrig.scale_rig(full, U.SCALE)
-
-
-def _problem(seed: int, K: int = 600):
-    rng = np.random.default_rng(seed)
-    rig = U.torch_rig()
-    C = rig.n_cams
-    mt_true = torch.tensor([0.02, -0.05, 0.01, 0.3, -0.1, 0.2], dtype=torch.float32)
-    cam = torch.from_numpy(rng.integers(0, C, K).astype(np.int32))
-    # pixels inside the image circle, lifted to 1.5-4 m along their rays
-    r = rng.uniform(0, 110, K)
-    a = rng.uniform(0, 2 * np.pi, K)
-    uv0 = torch.from_numpy(np.stack([188 + r * np.cos(a), 120 + r * np.sin(a)], -1)
-                           .astype(np.float32))
-    cams = rig.cams.index(cam.long())
-    ray = img_to_world(cams, uv0)
-    depth = torch.from_numpy(rng.uniform(1.5, 4.0, K).astype(np.float32))
-    M = mt_mc(cayley2hom(mt_true), rig.M_c)[cam.long()]           # cam -> world
-    Xc = ray * depth[:, None]
-    X = torch.einsum("kij,kj->ki", M[:, :3, :3], Xc) + M[:, :3, 3]
-    Tc = inv_se3(M)
-    uv = world_to_img(cams, torch.einsum("kij,kj->ki", Tc[:, :3, :3], X) + Tc[:, :3, 3])
-    lvl = rng.integers(0, 4, K)
-    noise = rng.normal(0, 0.7, (K, 2)) * (1.2 ** lvl)[:, None]
-    out = rng.random(K) < 0.1
-    noise[out] += rng.uniform(15, 30, (int(out.sum()), 2)) * rng.choice([-1, 1], (int(out.sum()), 2))
-    obs = topt.BAObservations(
-        uv=uv + torch.from_numpy(noise.astype(np.float32)),
-        kf=torch.zeros(K, dtype=torch.int32), cam=cam,
-        pt=torch.arange(K, dtype=torch.int32),
-        inv_sigma2=torch.from_numpy((1.2 ** (-2.0 * lvl)).astype(np.float32)),
-        valid=torch.from_numpy(rng.random(K) < 0.95))
-    mt0 = mt_true + torch.from_numpy(
-        np.r_[rng.normal(0, 0.01, 3), rng.normal(0, 0.03, 3)].astype(np.float32))
-    return obs, X, mt0, mt_true
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -19,7 +19,7 @@ Sim3 RANSAC, 256 x 4x4), then
   inputs (its generator state restored; 5 calls) and three forced
   relocalizations with the tracker's units eager (the stages inside
   ``_relocalize`` only), under ``torch.profiler`` with a
-  ``record_function`` range a stage (``stage_device_us``). The graphed
+  ``record_function`` range a stage (``chip_smoke.stage_device``). The graphed
   ``initialize_device`` on the same inputs (5 calls): ms between two
   events, and the host ms of the call up to the second event;
 - the sites: each build's device us a launch (``chip_smoke.device_ms``:
@@ -46,7 +46,6 @@ import subprocess
 import sys
 import threading
 import time
-from collections import Counter
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 sys.path.insert(0, ROOT)
@@ -57,7 +56,6 @@ EMPTY = os.path.join(ROOT, "tools", "empty_kernel.cu")
 FRAMES = 40
 RELOCS = 3
 INIT_REPS = 5
-STAGE = "stage:"
 
 
 def card() -> str:
@@ -184,76 +182,6 @@ def mean_sweeps(lib, entry, A, outs) -> float:
 
 # -- stages -----------------------------------------------------------------------
 
-class Ranges:
-    """While entered, each target (owner, attribute, label) runs inside a
-    ``record_function`` range named STAGE + label."""
-
-    def __init__(self, *targets):
-        self.targets = targets
-
-    def __enter__(self):
-        import torch
-
-        self.saved = []
-        for owner, attr, label in self.targets:
-            f = getattr(owner, attr)
-
-            def ranged(*a, _f=f, _label=label, **k):
-                with torch.profiler.record_function(STAGE + _label):
-                    return _f(*a, **k)
-            self.saved.append((owner, attr, f, attr in vars(owner)))
-            setattr(owner, attr, ranged)
-        return self
-
-    def __exit__(self, *exc):
-        for owner, attr, f, own in reversed(self.saved):
-            if own:
-                setattr(owner, attr, f)
-            else:
-                delattr(owner, attr)
-
-
-def stage_device_us(prof, within: str | None = None) -> tuple:
-    """({stage: device us}, all device us, {stage: us from the stage's
-    first kernel's start to its last kernel's end}) of a profile. A
-    device activity (kernel, copy, fill) is traced to the host operation
-    that launched it (its linked correlation id) and counts in every STAGE
-    range open on that thread at that host moment. A kernel with no such
-    link (the ctypes kernels: their launch is no PyTorch operation) counts
-    in every stage whose range holds it on the device's timeline, where
-    the profiler draws each range from its first kernel's start to its
-    last kernel's end. With ``within``, only activity inside that stage
-    counts in the others."""
-    from torch.autograd import DeviceType
-
-    evs = prof.profiler.kineto_results.events()
-    host = {e.correlation_id(): (e.start_ns(), e.start_thread_id()) for e in evs
-            if e.device_type() == DeviceType.CPU}
-    ranges = [(e.name()[len(STAGE):], e.start_ns(), e.end_ns(), e.start_thread_id())
-              for e in evs if e.device_type() == DeviceType.CPU and e.name().startswith(STAGE)]
-    dev_ranges = [(e.name()[len(STAGE):], e.start_ns(), e.end_ns()) for e in evs
-                  if e.device_type() == DeviceType.CUDA and e.name().startswith(STAGE)]
-    by_stage, span, total = Counter(), Counter(), 0.0
-    for lb, start, end in dev_ranges:
-        span[lb] += (end - start) / 1e3
-    for e in evs:
-        if e.device_type() != DeviceType.CUDA or e.name().startswith(STAGE):
-            continue
-        us = e.duration_ns() / 1e3
-        total += us
-        at = host.get(e.linked_correlation_id())
-        hit = set() if at is None else {lb for lb, start, end, th in ranges
-                                        if th == at[1] and start <= at[0] <= end}
-        if not hit:
-            hit = {lb for lb, start, end in dev_ranges
-                   if start <= e.start_ns() and e.end_ns() <= end}
-        if within is not None and within not in hit:
-            continue
-        for lb in hit or {"(no stage)"}:
-            by_stage[lb] += us
-    return dict(by_stage), total, dict(span)
-
-
 def profiled_stages(fn, targets, reps, within=None):
     """Per call of fn (reps calls, each profiled alone), medians: the
     device us by stage (inside stage ``within`` where given), all device
@@ -261,14 +189,17 @@ def profiled_stages(fn, targets, reps, within=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import chip_smoke as cs
+
     runs = []
     for _ in range(reps):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
-                Ranges(*targets):
+                cs.Ranges(*targets):
             fn()
             torch.cuda.synchronize()
-        runs.append(stage_device_us(prof, within))
+        us, _, total, _, span = cs.stage_device(prof, within)
+        runs.append((us, total, span))
     med = lambda i: {lb: round(statistics.median(r[i].get(lb, 0.0) for r in runs), 3)
                      for lb in sorted({k for r in runs for k in r[i]})}
     return med(0), round(statistics.median(r[1] for r in runs), 3), med(2)
