@@ -295,7 +295,8 @@ Phases, each fatal on failure:
      capture-ahead took and what captured after it; GP3P and the pose LM
      capture nothing on phase 7's relocalized frames.
  18. the pose LM kernel (csrc/pose_lm.cu: both LM rounds, the gate and
-     the final count in one launch, each round stopping on the device) at
+     the final count in one launch of a thread-block cluster, each round
+     stopping on the device) at
      every call of phases 6-9: PoseSpy counts its launches by site
      (motion, local_map, reloc_local_map, previous_frame, reloc,
      reloc_second_chance, capture_ahead) and PoseUnits keeps the inputs
@@ -308,9 +309,11 @@ Phases, each fatal on failure:
      float64, exactly (masks, counts and iterations equal, pose within
      1e-10); the worst case per site is printed. Each site's first call
      (and phase 4's two sites) is timed: device us a launch by CUDA-graph
-     replay beside the launch floor (an empty kernel of 512 threads), its
-     bound (about 520 operations a row a pass), the plain version's device
-     us and device operations a call, registers and local bytes.
+     replay beside the launch floor (an empty cluster of the kernel's
+     shape, tools/empty_kernel.cu), its bound (about 520 operations a row
+     a pass), the plain version's device us and device operations a call;
+     each instance's cluster size, CTA width, registers and local bytes
+     are printed.
 
 Each of phases 6, 7, 8, 9, 10, 11 (a) and (b), 12 (a) and (c), 13 (a)
 and 14 (a) sets the launch counts to 0 just before it drives its path and
@@ -3982,21 +3985,50 @@ def eig_errors(entry, A, got, want):
 
 
 def empty_library(knn):
-    """The empty kernel (EMPTY_SOURCE), built as the port's kernels are."""
+    """The empty kernels (EMPTY_SOURCE), built as the port's kernels are."""
     import ctypes
 
     here = os.path.dirname(os.path.abspath(__file__))
     lib = ctypes.CDLL(knn.build(os.path.join(here, EMPTY_SOURCE), "libempty"))
     lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.empty_launch.restype = ctypes.c_int
+    lib.empty_cluster_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for f in (lib.empty_launch, lib.empty_cluster_launch, lib.empty_init):
+        f.restype = ctypes.c_int
+    if lib.empty_init() != 0:
+        fail("the empty cluster kernels' init failed")
     return lib
 
 
-def launch_floor_ms(lib, threads: int = 32) -> float:
+def launch_floor_ms(lib, threads: int = 32, cluster: int = 0) -> float:
     """Device ms of one launch of an empty kernel (one block of
-    ``threads``), timed as device_ms times an entry: the least a launch of
-    the small eigensolvers can take on this card."""
-    return device_ms(lambda: lib.empty_launch(threads, torch.cuda.current_stream().cuda_stream))
+    ``threads``, or with ``cluster`` one thread-block cluster of that many
+    such blocks), timed as device_ms times an entry: the least a launch of
+    the small eigensolvers, or of the pose LM, can take on this card."""
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    if cluster:
+        return device_ms(lambda: lib.empty_cluster_launch(cluster, threads, stream()))
+    return device_ms(lambda: lib.empty_launch(threads, stream()))
+
+
+def pose_floor_ms(card) -> float:
+    """The pose LM's launch floor: an empty cluster of the kernel's shape
+    (its float32 instance's, as the kernel reports it), after printing
+    each instance's cluster, CTA width, registers and local bytes."""
+    from multicol_slam_tpu_torch.kernels import pose_lm
+
+    attrs = {dt: pose_lm.kernel_attributes(dt) for dt in (torch.float32, torch.float64)}
+    shape = attrs[torch.float32]
+    if shape["cluster"] < 2:
+        fail(f"the pose LM launches clusters of {shape['cluster']} CTA: want more than one")
+    floor_ms = launch_floor_ms(EMPTY["lib"], threads=shape["threads"],
+                               cluster=shape["cluster"])
+    for dt, at in attrs.items():
+        print(f"pose LM instance {str(dt).replace('torch.', '')}: a cluster of {at['cluster']} "
+              f"CTAs of {at['threads']} threads, {at['registers']} registers and "
+              f"{at['local_bytes']} local bytes a thread, {at['max_active_clusters']} such "
+              f"clusters at once; launch floor (an empty cluster of that shape) "
+              f"{floor_ms * 1e3:.3f} us ({card})")
+    return floor_ms
 
 
 def eig_entry(site, A, launches, card, floor_ms):
@@ -4420,19 +4452,20 @@ def pose_entry(site, inputs, launches, card, floor_ms, worst=None):
             "bound_by": bound_by, "library_ms": None,
             "library": "none: no single PyTorch call computes it", "floor_ms": floor_ms,
             "registers": attrs["registers"], "local_bytes": attrs["local_bytes"],
-            "rows": K, "iterations": it, "dtype": str(mt0.dtype).replace("torch.", ""),
+            "cluster": attrs["cluster"], "threads": attrs["threads"], "rows": K,
+            "iterations": it, "dtype": str(mt0.dtype).replace("torch.", ""),
             "worst": worst}
 
 
-def pose_phase(card, spy):
+def pose_phase(card, spy, floor_ms):
     """Phase 18: every pose_optimization call of phases 6-9. Each recorded
     call of a unit that runs the pose LM (PoseUnits) runs again eagerly
     under a PoseSpy that keeps every pose LM call's inputs, named by the
     recorded call's stack; each of those calls, the kernel against the
     plain version in its dtype and in float64 (pose_compare), the worst
     case per site printed; then each site's first call timed and bounded
-    (pose_entry) with the launches ``spy`` counted over phases 6-9.
-    Returns the kernel JSON entries."""
+    (pose_entry) with the launches ``spy`` counted over phases 6-9, beside
+    the launch floor ``floor_ms``. Returns the kernel JSON entries."""
     rerun = PoseSpy(keep_all=True)
     with rerun:
         for r in POSE_RECORDS:
@@ -4489,7 +4522,6 @@ def pose_phase(card, spy):
                        "reloc_second_chance"} <= set(by_site):
         fail(f"phase 18: pose LM sites launched {dict(spy.launches)}, recorded "
              f"{sorted(by_site)}")
-    floor_ms = launch_floor_ms(EMPTY["lib"], threads=512)
     return [pose_entry(site, w["first"], spy.launches[site], card, floor_ms,
                        worst={"f32": w["f32"], "f64": w["f64"]})
             for site, w in by_site.items()]
@@ -4834,11 +4866,11 @@ def main() -> None:
     mark("17 tracker graphs")
 
     # -- 18. the pose LM kernel at every call site of phases 6-9 -------------------
-    floor_ms = launch_floor_ms(EMPTY["lib"], threads=512)
+    floor_ms = pose_floor_ms(card)
     pose_entries = [pose_entry(f"working_{site}", pose_spy.first["chunk_" + site],
                                pose_spy.launches["chunk_" + site], card, floor_ms)
                     for site in ("motion", "local_map")]
-    pose_entries += pose_phase(card, sys_pose_spy)
+    pose_entries += pose_phase(card, sys_pose_spy, floor_ms)
     mark("18 pose LM")
 
     print(f"wall s by phase {phase_s}, whole script {time.perf_counter() - t_script:.3f} "

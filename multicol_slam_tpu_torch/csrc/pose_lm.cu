@@ -19,27 +19,48 @@
 //   huber^2 at its pose, round 2 runs on those; the final inliers are the
 //   valid rows with chi2 <= huber^2 at the last pose.
 //
-// Design: one CTA of THREADS threads a call, the rows strided over its
-// threads. A pass over the rows at a pose evaluates each row's residual,
-// robust cost, Huber weight and the written-out pose Jacobian
-// (optimizer.pose_jacobian), and sums the cost, the 21 entries of the
-// upper triangle of J^T W J and the 6 of J^T W r: each thread in row
-// order, then warp shuffles, then the warps' sums in warp order in
-// shared memory, one fixed order and no atomics, so a graph's replay
-// equals the eager call bit for bit. The pass at mt - d decides accept or
-// reject, and on accept its H and g are the next iteration's (the plain
-// version's hess(mt) there is the same values); thread 0 keeps the LM
-// state and factors the 6x6. The cameras' fields, cayley2hom(rig.M_c_min)
-// per camera and the world-to-camera transform at the evaluated pose sit
-// in shared memory. Passes: 1 + iterations of round 1 + 1 (the gate, which
-// is round 2's first pass) + iterations of round 2 + 1 (the count).
+// Design: one thread-block cluster of CLUSTER CTAs of THREADS threads a
+// call (16 CTAs, a cluster size past the portable 8 that pose_lm_init
+// allows before any capture: tools/pose_lm_study.py timed 16 against 8
+// and other CTA widths). CTA rank r owns rows [r ceil(K / CLUSTER), (r + 1)
+// ceil(K / CLUSTER)) in every pass, strided over its threads, so the
+// thread that writes a row's gate bit reads it back in round 2. A pass
+// over the rows at a pose evaluates each row's residual, robust cost,
+// Huber weight and the written-out pose Jacobian (optimizer.pose_jacobian),
+// and sums the cost, the 21 entries of the upper triangle of J^T W J and
+// the 6 of J^T W r in one fixed order and with no atomics: each thread
+// over its rows in row order, the warp's 32 lanes by a butterfly whose
+// every sum groups the lanes as a shuffle-down tree does, the CTA's warps
+// in warp order; warp 0 stores the CTA's sums into its rank's place in
+// every rank's shared memory (distributed shared memory; two sets of
+// places, by the pass's parity, so one cluster barrier a pass suffices),
+// and after the cluster barrier every CTA adds the ranks' sums in rank
+// order. So every CTA holds the same totals bit for bit and runs the same
+// LM step in the registers of its two lead warps (each lane the same
+// solve, accept and stop), with no broadcast; a graph's replay equals the
+// eager call. The lead warps then spread the next pose's constants over
+// their lanes: camera i's world-to-camera transform on warp 1's lane i, the
+// 27 entries of dR / dc_m and R's 9 on warp 0's lanes 0-26, t on lanes
+// 27-29. A pass is thus one __syncthreads before the rows, one after them
+// and one cluster barrier. The pass at mt - d decides accept or reject,
+// and on accept its H and g are the next iteration's (the plain version's
+// hess(mt) there is the same values). Passes: 1 + iterations of round 1 +
+// 1 (the gate, which is round 2's first pass) + iterations of round 2 + 1
+// (the count). A cluster barrier before the first pass waits until every
+// CTA of the cluster has started (distributed shared memory may be written
+// only then); rank 0 writes the outputs; a last cluster barrier keeps
+// every CTA of the cluster until all are done.
 //
 // Bound on an H100 (67 TFLOP/s float32, 34 TFLOP/s float64 outside the
 // tensor cores; 3.35 TB/s): a pass is about 520 operations a row, so a
 // call of 23 passes over 2,400 rows is some 29 MFLOP, 0.43 us in float32;
-// its inputs are 0.08 MB, 0.02 us. What holds the kernel back is latency: the passes
-// run one after another on one SM, each a chain of an atan2, a square
-// root, divisions and a block reduction, then thread 0's 6x6 solve.
+// its inputs are 0.08 MB, 0.02 us. What holds the kernel back is latency:
+// the passes run one after another, each a row's chain of an atan2, a
+// square root and divisions (4,400-4,800 SM cycles for one row a thread on
+// an H100: tools/pose_lm_study.py --marks), the CTA's and the cluster's sums, and the lead warps' 6x6 solve. The
+// cluster spreads the rows over CLUSTER SMs, so up to CLUSTER x THREADS
+// rows take one row's chain; the serial rest of a pass is the barriers,
+// the stores to the ranks and the solve.
 //
 // Built with --fmad=false (kernels/pose_lm.py): no multiply-add is
 // contracted, so each row's elementwise chain (projection, Horner,
@@ -47,17 +68,33 @@
 // products before it (cuBLAS in the plain version) and the sums'
 // order are not PyTorch's, so the sums agree only to rounding.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+// the CTA width and the CTAs a cluster; tools/pose_lm_study.py builds
+// other shapes with -DPOSE_LM_THREADS=N -DPOSE_LM_CLUSTER=M
+#ifndef POSE_LM_THREADS
+#define POSE_LM_THREADS 256
+#endif
+#ifndef POSE_LM_CLUSTER
+#define POSE_LM_CLUSTER 16
+#endif
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int CLUSTER = POSE_LM_CLUSTER;   // CTAs a call; past 8 not portable (pose_lm_init)
+constexpr int THREADS = POSE_LM_THREADS;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_CAMS = 32;
 constexpr int MAX_POLY = 16;
 constexpr int NSUM = 28;              // cost, H's upper triangle (21), g (6)
+constexpr int LEAD_WARPS = 2;         // the warps that keep the LM state
+static_assert(THREADS % 32 == 0 && THREADS >= 64 && THREADS <= 1024, "CTA width");
+static_assert(CLUSTER >= 2 && CLUSTER <= 16, "cluster size");
 
 enum Mode { ROUND1 = 0, GATE = 1, ROUND2 = 2, FINAL = 3 };
 
@@ -91,14 +128,11 @@ struct Shared {
   T TR[MAX_CAMS][9], Tt[MAX_CAMS][3]; // inv_se3(M_t M_c) at the evaluated pose
   T A[MAX_CAMS][9];                   // -(R R_c)^T, the translation columns of dX_c
   T R[9], t[3], dR[3][9];             // the evaluated pose: R, t, dR / dc_m
-  T mt[6];                            // the evaluated pose
-  T part[WARPS][NSUM];
+  T part[WARPS][NSUM];                // a pass's sums by warp
   int cnt[WARPS];
-  // a pass's sums, and the LM state thread 0 keeps (in shared memory, so
-  // that no other thread holds registers for it)
-  T tot[NSUM];
-  T H[21], g[6], mt_acc[6], lam, cost;
-  int count, go;
+  T slot[2][CLUSTER][NSUM];           // every rank's sums, by the pass's parity
+  int slot_cnt[2][CLUSTER];
+  int go;
 };
 
 // R = cayley2rot(c) (ops/geometry.py), in its operation order
@@ -140,11 +174,15 @@ __device__ void rot2cayley(const T* R, T* c) {
   c[2] = -C[1];
 }
 
-// sum_i coeffs[i] x^i, lowest order first (geometry.horner)
+// sum_i coeffs[i] x^i, lowest order first (geometry.horner); unrolled to
+// MAX_POLY with the steps past n - 1 skipped, so the coefficients' loads
+// need not wait on the loop
 template <typename T>
 __device__ __forceinline__ T horner(const T* coeffs, int n, T x) {
   T res = T(0) + coeffs[n - 1];
-  for (int i = n - 2; i >= 0; --i) res = res * x + coeffs[i];
+#pragma unroll
+  for (int i = MAX_POLY - 2; i >= 0; --i)
+    if (i < n - 1) res = res * x + coeffs[i];
   return res;
 }
 
@@ -163,12 +201,12 @@ __device__ void load_camera(Shared<T>& s, const Args<T>& a, int i) {
   s.tc[i][0] = M[3]; s.tc[i][1] = M[7]; s.tc[i][2] = M[11];
 }
 
-// camera i at the evaluated pose: T = inv_se3(M_t M_c), and -(R R_c)^T
+// camera i at the pose mt: T = inv_se3(M_t M_c), and -(R R_c)^T
 template <typename T>
-__device__ void pose_camera(Shared<T>& s, int i) {
+__device__ __forceinline__ void pose_camera(Shared<T>& s, int i, const T* mt) {
   T R[9];
-  cayley2rot(s.mt, R);
-  const T* t = s.mt + 3;
+  cayley2rot(mt, R);
+  const T* t = mt + 3;
   T MR[9], Mt[3];
   for (int r = 0; r < 3; ++r) {
     for (int c = 0; c < 3; ++c)
@@ -187,51 +225,94 @@ __device__ void pose_camera(Shared<T>& s, int i) {
     s.Tt[i][r] = -(MR[r] * Mt[0] + MR[3 + r] * Mt[1] + MR[6 + r] * Mt[2]);
 }
 
-// the evaluated pose's R, t and dR / dc_m (geometry.cayley_rot_grads)
+// v[i] for a runtime i in 0..n-1, by selects (an array in registers)
+template <int n, typename T>
+__device__ __forceinline__ T pick(const T* v, int i) {
+  T r = v[0];
+#pragma unroll
+  for (int q = 1; q < n; ++q) r = i == q ? v[q] : r;
+  return r;
+}
+
+// The constants of the pose mt (the same in every lead lane) for the next
+// pass, spread over the two lead warps: on warp 1, camera i's transform on
+// lane i < C; on warp 0, on lane j < 27 the entry (m, q) = (j / 9, j % 9)
+// of dR / dc_m (geometry.cayley_rot_grads, in its operation order, with R's
+// entry q as cayley2rot divides it), lanes j < 9 also R's entry j; t on
+// lanes 27-29.
 template <typename T>
-__device__ void pose_grads(Shared<T>& s) {
-  const T* c = s.mt;
-  T* R = s.R;
-  cayley2rot(c, R);
-  const T sc = T(1) + (c[0] * c[0] + c[1] * c[1] + c[2] * c[2]);
-  for (int m = 0; m < 3; ++m) {
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) {
-        // skew(e_m)[i][j]: +1 at (m+2, m+1) and -1 at (m+1, m+2), mod 3
-        const T sk = (i == (m + 2) % 3 && j == (m + 1) % 3) ? T(1)
-                     : (i == (m + 1) % 3 && j == (m + 2) % 3) ? T(-1) : T(0);
-        const T dN = T(-2) * c[m] * T(i == j) + T(2) * T(m == i) * c[j]
-                     + T(2) * c[i] * T(m == j) + T(2) * sk;
-        s.dR[m][3 * i + j] = (dN - T(2) * c[m] * R[3 * i + j]) / sc;
-      }
-    }
+__device__ __forceinline__ void set_pose(Shared<T>& s, const T* mt, int warp, int lane, int C) {
+  if (warp == 1) {
+    if (lane < C) pose_camera(s, lane, mt);
+  } else if (lane < 27) {
+    const int m = lane / 9, q = lane % 9, i = q / 3, j = q % 3;
+    const T c1 = mt[0], c2 = mt[1], c3 = mt[2];
+    const T c1s = c1 * c1, c2s = c2 * c2, c3s = c3 * c3;
+    const T scale = T(1) + c1s + c2s + c3s;
+    const T N[9] = {T(1) + c1s - c2s - c3s, T(2) * (c1 * c2 - c3), T(2) * (c1 * c3 + c2),
+                    T(2) * (c1 * c2 + c3), T(1) - c1s + c2s - c3s, T(2) * (c2 * c3 - c1),
+                    T(2) * (c1 * c3 - c2), T(2) * (c2 * c3 + c1), T(1) - c1s - c2s + c3s};
+    const T Rq = pick<9>(N, q) / scale;
+    const T sc = T(1) + (mt[0] * mt[0] + mt[1] * mt[1] + mt[2] * mt[2]);
+    const T cm = pick<3>(mt, m), ci = pick<3>(mt, i), cj = pick<3>(mt, j);
+    // skew(e_m)[i][j]: +1 at (m+2, m+1) and -1 at (m+1, m+2), mod 3
+    const T sk = (i == (m + 2) % 3 && j == (m + 1) % 3) ? T(1)
+                 : (i == (m + 1) % 3 && j == (m + 2) % 3) ? T(-1) : T(0);
+    const T dN = T(-2) * cm * T(i == j) + T(2) * T(m == i) * cj
+                 + T(2) * ci * T(m == j) + T(2) * sk;
+    s.dR[m][q] = (dN - T(2) * cm * Rq) / sc;
+    if (lane < 9) s.R[q] = Rq;
+  } else if (lane < 30) {
+    s.t[lane - 27] = pick<3>(mt + 3, lane - 27);
   }
-  for (int i = 0; i < 3; ++i) s.t[i] = s.mt[3 + i];
 }
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+// One step of warp_sums at lane distance W, then the next at W / 2.
+template <int W, typename T>
+__device__ __forceinline__ void butterfly(T (&v)[32], int lane) {
+  const bool up = (lane & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const T send = up ? v[i] : v[i + W];
+    const T keep = up ? v[i + W] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
+  }
+  if constexpr (W > 1) butterfly<W / 2>(v, lane);
 }
 
-// One pass over the rows at s.mt. Leaves the sums in s.tot (cost, H's
-// upper triangle row by row, g) and the final inlier count in s.count,
-// written by thread 0 and read by it.
+// The warp's sum of each of the NSUM terms, term n ending in lane n (n <
+// NSUM): a butterfly in which each lane keeps the half of its terms that
+// its bit picks and adds its partner's copy of that half. Every term's sum
+// groups the lanes as the shuffle-down tree (lane l + lane l + 16, then +
+// 8, 4, 2, 1) does, and IEEE addition commutes, so it equals that tree's
+// sum bit for bit, in 31 shuffles in place of 5 a term.
 template <typename T>
-__device__ __forceinline__ void evaluate(Shared<T>& s, const Args<T>& a, int mode) {
+__device__ __forceinline__ T warp_sums(const T (&acc)[NSUM], int lane) {
+  T v[32];
+#pragma unroll
+  for (int n = 0; n < 32; ++n) v[n] = n < NSUM ? acc[n] : T(0);
+  butterfly<16>(v, lane);
+  return v[0];
+}
+
+// One pass over this CTA's rows [lo, hi) at the pose whose constants are in
+// shared memory (written, and a __syncthreads passed, before the call).
+// Returns, in every lane of the lead warps, the cluster's sums (cost, H's
+// upper triangle row by row, g) in tot and the final inlier count in
+// count.
+template <typename T>
+__device__ __forceinline__ void evaluate(Shared<T>& s, const Args<T>& a,
+                                         cg::cluster_group& cluster, int mode,
+                                         long long lo, long long hi, int parity,
+                                         T (&tot)[NSUM], int& count) {
   const int tid = threadIdx.x;
-  if (tid < a.C) pose_camera(s, tid);
-  if (tid == THREADS - 1) pose_grads(s);
-  __syncthreads();
-
   const T huber = T(a.huber), two_huber = T(2.0 * a.huber);
   const T delta2 = T(a.huber * a.huber), tiny = T(1e-12), zero_n = T(1e-14);
   T acc[NSUM];
 #pragma unroll
   for (int n = 0; n < NSUM; ++n) acc[n] = T(0);
   int cnt = 0;
-  for (long long k = tid; k < a.K; k += THREADS) {
+  for (long long k = lo + tid; k < hi; k += THREADS) {
     const int ci = a.cam[k];
     const long long pi = a.pt[k];
     const bool ok = ci >= 0 && ci < a.C && pi >= 0 && pi < a.P;
@@ -337,25 +418,46 @@ __device__ __forceinline__ void evaluate(Shared<T>& s, const Args<T>& a, int mod
     }
   }
 
-  // the sums: warps, then the warps' sums in warp order
+  // the sums: the warp's lanes, then the warps in warp order, sent to every
+  // rank's slot for this rank; after the cluster barrier each lead warp adds
+  // the ranks' slots in rank order
   const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int n = 0; n < NSUM; ++n) {
-    const T v = warp_sum(acc[n]);
-    if (lane == 0) s.part[warp][n] = v;
-  }
-  for (int off = 16; off > 0; off >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+  const T v = warp_sums(acc, lane);
+  cnt = __reduce_add_sync(0xffffffffu, cnt);
+  if (lane < NSUM) s.part[warp][lane] = v;
   if (lane == 0) s.cnt[warp] = cnt;
   __syncthreads();
   if (warp == 0) {
+    const unsigned me = cluster.block_rank();
+    if (lane < NSUM) {
+      T sum = s.part[0][lane];
 #pragma unroll
-    for (int n = 0; n < NSUM; ++n) {
-      const T v = warp_sum(lane < WARPS ? s.part[lane][n] : T(0));
-      if (lane == 0) s.tot[n] = v;
+      for (int w = 1; w < WARPS; ++w) sum = sum + s.part[w][lane];
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r) *cluster.map_shared_rank(&s.slot[parity][me][lane], r) = sum;
+    } else if (lane == NSUM) {
+      int c = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) c += s.cnt[w];
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r) *cluster.map_shared_rank(&s.slot_cnt[parity][me], r) = c;
     }
-    int c2 = lane < WARPS ? s.cnt[lane] : 0;
-    for (int off = 16; off > 0; off >>= 1) c2 += __shfl_down_sync(0xffffffffu, c2, off);
-    if (lane == 0) s.count = c2;
+  }
+  cluster.sync();
+  if (warp < LEAD_WARPS) {
+    T sum = T(0);
+    int c = 0;
+    if (lane < NSUM) {
+      sum = s.slot[parity][0][lane];
+#pragma unroll
+      for (int r = 1; r < CLUSTER; ++r) sum = sum + s.slot[parity][r][lane];
+    } else if (lane == NSUM) {
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r) c += s.slot_cnt[parity][r];
+    }
+#pragma unroll
+    for (int n = 0; n < NSUM; ++n) tot[n] = __shfl_sync(0xffffffffu, sum, n);
+    count = __shfl_sync(0xffffffffu, c, NSUM);
   }
 }
 
@@ -429,77 +531,99 @@ __device__ __forceinline__ T nan_max(T m, T v) {
   return (v > m || v != v) ? v : m;
 }
 
+// The LM state lives in the lead warps' registers, the same in every lane
+// of both and in every rank (each computes it from the same totals).
 template <typename T>
-__global__ void __launch_bounds__(THREADS) pose_lm_kernel(Args<T> a) {
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
+pose_lm_kernel(Args<T> a) {
   __shared__ Shared<T> s;
-  const int tid = threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool lead = warp < LEAD_WARPS;
+  const long long chunk = (a.K + CLUSTER - 1) / CLUSTER;
+  const long long first = (long long)cluster.block_rank() * chunk;
+  const long long lo = first < a.K ? first : a.K;
+  const long long hi = lo + chunk < a.K ? lo + chunk : a.K;
   if (tid < a.C) load_camera(s, a, tid);
-  if (tid < 6) {
-    s.mt[tid] = a.mt0[tid];
-    s.mt_acc[tid] = a.mt0[tid];
-  }
   __syncthreads();
 
-  int it_total = 0;           // thread 0's
+  T mt_acc[6], mt[6], H[21], g[6], tot[NSUM];
+  T lam = T(0), cost = T(0);
+  int count = 0, it_total = 0, pass = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) mt_acc[i] = mt[i] = a.mt0[i];
+  if (lead) set_pose(s, mt, warp, lane, a.C);
+  // the first pass stores into every rank's shared memory: all CTAs of the
+  // cluster must have started (and this CTA's constants be written)
+  cluster.sync();
   for (int round = 0; round < 2; ++round) {
-    evaluate(s, a, round == 0 ? ROUND1 : GATE);
+    evaluate(s, a, cluster, round == 0 ? ROUND1 : GATE, lo, hi, pass++ & 1, tot, count);
     const int iters = round == 0 ? a.iters1 : a.iters2;
     int it = 0;
     bool done = false;
-    if (tid == 0) {
-      s.cost = s.tot[0];
-      for (int n = 0; n < 21; ++n) s.H[n] = s.tot[1 + n];
-      for (int i = 0; i < 6; ++i) s.g[i] = s.tot[22 + i];
-      T m = s.H[0];
-      m = nan_max(m, s.H[6]);
-      m = nan_max(m, s.H[11]);
-      m = nan_max(m, s.H[15]);
-      m = nan_max(m, s.H[18]);
-      m = nan_max(m, s.H[20]);
-      s.lam = T(a.tau) * m;
+    if (lead) {
+      cost = tot[0];
+#pragma unroll
+      for (int n = 0; n < 21; ++n) H[n] = tot[1 + n];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) g[i] = tot[22 + i];
+      T m = H[0];
+      m = nan_max(m, H[6]);
+      m = nan_max(m, H[11]);
+      m = nan_max(m, H[15]);
+      m = nan_max(m, H[18]);
+      m = nan_max(m, H[20]);
+      lam = T(a.tau) * m;
     }
     for (;;) {
-      if (tid == 0) {
-        const int go = it < iters && !done;
+      if (lead) {
+        const bool go = it < iters && !done;
         if (go) {
           T d[6];
-          solve6(s.H, s.g, s.lam, d);
-          for (int i = 0; i < 6; ++i) s.mt[i] = s.mt_acc[i] - d[i];
+          solve6(H, g, lam, d);
+#pragma unroll
+          for (int i = 0; i < 6; ++i) mt[i] = mt_acc[i] - d[i];
+          set_pose(s, mt, warp, lane, a.C);
         }
-        s.go = go;
+        if (tid == 0) s.go = go;
       }
       __syncthreads();
       if (!s.go) break;
-      evaluate(s, a, round == 0 ? ROUND1 : ROUND2);
-      if (tid == 0) {
-        const T cost_new = s.tot[0];
-        const bool accept = cost_new < s.cost;
-        const T gain = (s.cost - cost_new) / (cost_new < T(1e-12) ? T(1e-12) : cost_new);
+      evaluate(s, a, cluster, round == 0 ? ROUND1 : ROUND2, lo, hi, pass++ & 1, tot, count);
+      if (lead) {
+        const T cost_new = tot[0];
+        const bool accept = cost_new < cost;
+        const T gain = (cost - cost_new) / (cost_new < T(1e-12) ? T(1e-12) : cost_new);
         if (accept) {
-          for (int i = 0; i < 6; ++i) s.mt_acc[i] = s.mt[i];
-          s.cost = cost_new;
-          for (int n = 0; n < 21; ++n) s.H[n] = s.tot[1 + n];
-          for (int i = 0; i < 6; ++i) s.g[i] = s.tot[22 + i];
-          s.lam = s.lam * T(0.5);
+#pragma unroll
+          for (int i = 0; i < 6; ++i) mt_acc[i] = mt[i];
+          cost = cost_new;
+#pragma unroll
+          for (int n = 0; n < 21; ++n) H[n] = tot[1 + n];
+#pragma unroll
+          for (int i = 0; i < 6; ++i) g[i] = tot[22 + i];
+          lam = lam * T(0.5);
         } else {
-          s.lam = s.lam * T(4);
+          lam = lam * T(4);
         }
         ++it;
         done = accept && gain < T(a.gain_eps);
       }
     }
-    if (tid == 0) {
+    if (lead) {
       it_total += it;
-      for (int i = 0; i < 6; ++i) s.mt[i] = s.mt_acc[i];
+      set_pose(s, mt_acc, warp, lane, a.C);
     }
     __syncthreads();
   }
-  evaluate(s, a, FINAL);
-  if (tid == 0) {
-    for (int i = 0; i < 6; ++i) a.mt_out[i] = s.mt_acc[i];
-    *a.n_out = s.count;
+  evaluate(s, a, cluster, FINAL, lo, hi, pass++ & 1, tot, count);
+  if (tid == 0 && cluster.block_rank() == 0) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) a.mt_out[i] = mt_acc[i];
+    *a.n_out = count;
     *a.it_out = it_total;
   }
+  cluster.sync();   // every CTA stays until the cluster is done
 }
 
 template <typename T>
@@ -536,7 +660,7 @@ int launch(const void* M_c, const void* c, const void* d, const void* e, const v
   a.huber = huber;
   a.tau = tau;
   a.gain_eps = gain_eps;
-  pose_lm_kernel<T><<<1, THREADS, 0, stream>>>(a);
+  pose_lm_kernel<T><<<CLUSTER, THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -549,24 +673,38 @@ const void* kernel_of(int f64) {
 extern "C" {
 
 // Loads both instances on the current device (under lazy module loading a
-// first launch would load them, which a capture refuses).
+// first launch would load them, which a capture refuses), and allows a
+// cluster past the portable 8 where the build asks for one.
 int pose_lm_init() {
-  cudaFuncAttributes attr;
   for (int f64 = 0; f64 < 2; ++f64) {
+    cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel_of(f64));
+    if (err == cudaSuccess && CLUSTER > 8)
+      err = cudaFuncSetAttribute(kernel_of(f64),
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-// A read-only query: out = {registers a thread, local bytes a thread} of
-// the float64 or float32 instance.
+// A read-only query: out = {registers a thread, local bytes a thread,
+// CTAs a cluster, threads a CTA, clusters of that shape the device can
+// hold at once} of the float64 or float32 instance.
 int pose_lm_attributes(int f64, int* out) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel_of(f64));
   if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CLUSTER);
+  config.blockDim = dim3(THREADS);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel_of(f64), &config);
+  if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
+  out[2] = CLUSTER;
+  out[3] = THREADS;
+  out[4] = clusters;
   return 0;
 }
 

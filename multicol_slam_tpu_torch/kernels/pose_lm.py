@@ -9,10 +9,13 @@ a compiled unit and not a Pallas kernel). Its plain version is
 ``optimizer.pose_optimization_reference``; ``optimizer.pose_optimization``
 takes it for a CPU tensor and this kernel for a CUDA tensor.
 
-A launch needs no preparatory PyTorch operation: the kernel gathers the
-points and the cameras' fields by the observation table's indices and
-computes ``cayley2hom(rig.M_c_min)`` itself, so a call is the four output
-allocations and one launch, with no cast or copy. The inputs must be
+A launch is one thread-block cluster of 16 CTAs, each over a fixed
+sixteenth of the rows, their sums exchanged through distributed shared
+memory and added in one fixed order (no atomics). It needs no preparatory PyTorch operation: the
+kernel gathers the points and the cameras' fields by the observation
+table's indices and computes ``cayley2hom(rig.M_c_min)`` itself, so a
+call is the four output allocations and one launch, with no cast or
+copy. The inputs must be
 contiguous CUDA tensors of one float dtype (float32 or float64; ``cam``
 and ``pt`` int32, ``valid`` bool) on one device; anything else raises.
 ``huber``, ``iters1`` and ``iters2`` are launch arguments, so the launch
@@ -24,8 +27,9 @@ kernels do) into ``kernels/build/`` at first use and loaded with ctypes;
 the first use on a device loads both instances there (``pose_lm_init``),
 so a launch inside a capture makes no other runtime call. Launches are
 counted through ``graphs.on_launch`` (``pose_lm.launches``).
-``kernel_attributes`` reads an instance's registers, local and shared
-bytes back (``cudaFuncGetAttributes``).
+``kernel_attributes`` reads an instance's registers and local bytes
+(``cudaFuncGetAttributes``), its cluster and CTA sizes and the clusters
+the card holds at once (``cudaOccupancyMaxActiveClusters``).
 """
 
 from __future__ import annotations
@@ -95,18 +99,20 @@ def _init_on(dev):
 
 def kernel_attributes(dtype: torch.dtype, device=None) -> dict:
     """Registers and local (stack) bytes a thread of the kernel instance
-    for ``dtype``, on the card (a read-only query)."""
+    for ``dtype``, its CTAs a cluster and threads a CTA, and the clusters
+    of that shape the card can hold at once (a read-only query)."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"no pose LM kernel for {dtype}")
     dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
         else torch.device(device)
     _init_on(dev)
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 5)()
     with torch.cuda.device(dev):
         err = load_library().pose_lm_attributes(int(dtype == torch.float64), out)
     if err != 0:
         raise RuntimeError(f"pose LM attribute query failed: cudaError {err}")
-    return dict(registers=out[0], local_bytes=out[1])
+    return dict(zip(("registers", "local_bytes", "cluster", "threads", "max_active_clusters"),
+                    out))
 
 
 def check(rig, mt_min0, obs, X_world):

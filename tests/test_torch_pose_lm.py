@@ -12,12 +12,18 @@ takes H and g from the accepted pass:
     on a singular one (every weight 0, so H = 0 and lam = 0: the solve
     gives a non-finite step, rejected) and on a round 1 that ends early by
     gain;
-  - with the kernel's fixed order of the sums (each of THREADS threads
-    over its rows in row order, warp shuffles, the warps' sums in warp
-    order) and its LU solve, against the JAX package: float64 within
-    1e-12 with equal iterations and masks, float32 within 1e-4 (the bar
-    of ``test_torch_optimizer.py``) with equal masks;
-  - the wrapper's argument checks.
+  - with the kernel's fixed order of the sums (the rows cut into CLUSTER
+    ranges, one a CTA; in a CTA each of THREADS threads over its rows in
+    row order, the warp's lanes as a shuffle-down tree, the warps in warp
+    order; then the CTAs in rank order) and its LU solve, against the JAX
+    package: float64 within 1e-12 with equal iterations and masks,
+    float32 within 1e-4 (the bar of ``test_torch_optimizer.py``) with
+    equal masks; that order adds every row once at row counts that leave
+    ranks empty or partly filled, and the kernel's butterfly over a
+    warp's lanes groups them as the shuffle-down tree, bit for bit;
+  - the wrapper's argument checks;
+  - the clock reads of ``tools/pose_lm_study.py --marks`` still fit the
+    kernel source (the kernel itself holds none).
 
 On the card (``@pytest.mark.cuda``, skipped here; no JAX in this file's
 imports) the kernel against the plain version on the same cases:
@@ -29,7 +35,9 @@ within 1e-4 (a gate row that flips gives round 2 another problem, as
 ``chip_smoke.py`` phase 18 found on a recorded local-map call: the
 poses 2.9e-4 apart, round 1 within 1.1e-5); a graph's replay equal to
 the eager launch,
-launches counted, no local memory in the float32 instance. The float32
+launches counted, no local memory in the float32 instance, a cluster of
+more than one CTA; the same bars at row counts that leave ranks of the
+cluster empty or partly filled (0, 1, one CTA's threads + 1, 7,344). The float32
 iteration count, and the robust costs at the two poses, are measured and
 not held here: in float32 a 1e-6 relative gain is below the rounding of
 the cost sum, so where a round stops depends on the order of the sums
@@ -56,8 +64,9 @@ from multicol_slam_tpu_torch.models import optimizer as topt
 from _poseutil import in_dtype, problem, rig
 
 SEEDS = (0, 1, 2)
-THREADS = int(re.search(r"constexpr int THREADS = (\d+);",
-                        open(K.SOURCE).read()).group(1))
+_SRC = open(K.SOURCE).read()
+THREADS = int(re.search(r"#define POSE_LM_THREADS (\d+)", _SRC).group(1))
+CLUSTER = int(re.search(r"#define POSE_LM_CLUSTER (\d+)", _SRC).group(1))
 WARPS = THREADS // 32
 F32_BAND = 1e-3        # chi2 within this of huber^2 (relative) may flip in float32
 
@@ -128,25 +137,55 @@ def early_exit_mirror(rig_, mt0, obs, X, *, huber=topt.HUBER_POSE, iters1=10, it
                huber=huber, iters1=iters1, iters2=iters2)
 
 
+def warp_sum(lanes: torch.Tensor) -> torch.Tensor:
+    """(..., 32, n) -> (..., n): the shuffle-down tree, lane l adding lane
+    l + 16, then 8, 4, 2, 1 (lanes past 31 read their own value)."""
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + torch.cat([lanes[..., off:, :], lanes[..., 32 - off:, :]], -2)
+    return lanes[..., 0, :]
+
+
+def butterfly_sums(lanes: torch.Tensor) -> torch.Tensor:
+    """(32, 32) -> (32,): the kernel's ``warp_sums``, lane l's 32 terms
+    (28 and 4 zeros) to term l's sum in lane l: at step w = 16, 8, 4, 2, 1
+    each lane keeps the half of its terms that its bit w picks and adds its
+    partner's (lane l ^ w) copy of that half."""
+    v = [lanes[:, i] for i in range(32)]             # v[i][lane]
+    lane = torch.arange(32)
+    for w in (16, 8, 4, 2, 1):
+        up = (lane & w) != 0
+        nxt = []
+        for i in range(w):
+            send = torch.where(up, v[i], v[i + w])
+            keep = torch.where(up, v[i + w], v[i])
+            nxt.append(keep + send[lane ^ w])
+        v = nxt
+    return v[0]
+
+
 def kernel_order_sum(v: torch.Tensor) -> torch.Tensor:
-    """Column sums of v (K, n) in the kernel's order: row k on thread
-    k % THREADS, each thread in row order, then each warp's 32 threads by
-    shuffles (lane l adds lane l + 16, 8, 4, 2, 1), then the warps' sums
-    the same way on warp 0."""
+    """Column sums of v (K, n) in the kernel's order: CTA rank r of the
+    CLUSTER owns rows [r c, (r + 1) c), c = ceil(K / CLUSTER); in a CTA,
+    row k on thread (k - r c) % THREADS, each thread in row order, then
+    each warp's 32 threads as the shuffle-down tree (``warp_sum``; the
+    kernel's butterfly groups them the same way), then the CTA's warps in
+    warp order; then the ranks' sums in rank order."""
     K_, n = v.shape
-    steps = -(-K_ // THREADS)
-    acc = torch.zeros(THREADS, n, dtype=v.dtype)
-    pad = torch.cat([v, torch.zeros(steps * THREADS - K_, n, dtype=v.dtype)])
-    for s in range(steps):
-        acc = acc + pad[s * THREADS:(s + 1) * THREADS]
-
-    def warp_sum(lanes):                       # (..., 32, n) -> (..., n)
-        for off in (16, 8, 4, 2, 1):
-            lanes = lanes + torch.cat([lanes[..., off:, :], lanes[..., 32 - off:, :]], -2)
-        return lanes[..., 0, :]
-
-    parts = warp_sum(acc.reshape(WARPS, 32, n))
-    return warp_sum(torch.cat([parts, torch.zeros(32 - WARPS, n, dtype=v.dtype)]))
+    chunk = -(-K_ // CLUSTER)
+    total = None
+    for r in range(CLUSTER):
+        lo, hi = min(K_, r * chunk), min(K_, r * chunk + chunk)
+        steps = -(-(hi - lo) // THREADS)
+        acc = torch.zeros(THREADS, n, dtype=v.dtype)
+        pad = torch.cat([v[lo:hi], torch.zeros(steps * THREADS - (hi - lo), n, dtype=v.dtype)])
+        for s in range(steps):
+            acc = acc + pad[s * THREADS:(s + 1) * THREADS]
+        parts = warp_sum(acc.reshape(WARPS, 32, n))
+        cta = parts[0]
+        for w in range(1, WARPS):
+            cta = cta + parts[w]
+        total = cta if total is None else total + cta
+    return total
 
 
 def lu_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -263,12 +302,31 @@ def test_kernel_order_mirror_matches_jax(dtype, seed):
         np.testing.assert_allclose(mt.numpy(), np.asarray(j_mt), rtol=0, atol=1e-4)
 
 
-def test_kernel_order_sum_is_a_sum():
+# row counts that leave ranks empty (0, 1), fill every rank partly (one
+# CTA's threads + 1), give a thread two rows (a cluster's threads + 1) and
+# the phase-4 local map's 7,344
+ROW_COUNTS = (0, 1, 31, THREADS - 1, THREADS, THREADS + 1, 2400, CLUSTER * THREADS + 1, 7344)
+
+
+@pytest.mark.parametrize("n", ROW_COUNTS)
+def test_kernel_order_sum_is_a_sum(n):
     """The mirror's order adds every row once: against float64 sums of
-    integers (exact in any order), over row counts around THREADS."""
-    for n in (0, 1, 31, THREADS - 1, THREADS, THREADS + 1, 2400):
-        v = torch.arange(n * 3, dtype=torch.float64).reshape(n, 3) % 7
-        assert torch.equal(kernel_order_sum(v), v.sum(0)), n
+    integers (exact in any order)."""
+    v = torch.arange(n * 3, dtype=torch.float64).reshape(n, 3) % 7
+    assert torch.equal(kernel_order_sum(v), v.sum(0)), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_butterfly_groups_as_the_shuffle_tree(dtype):
+    """The kernel's warp sums (a butterfly, term n to lane n) equal the
+    shuffle-down tree's bit for bit, on terms of mixed scale and sign."""
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(20):
+        lanes = (torch.randn(32, 32, generator=gen, dtype=torch.float64)
+                 * 10.0 ** torch.randint(-6, 7, (32, 32), generator=gen)).to(dtype)
+        lanes[:, 28:] = 0
+        want = warp_sum(lanes[None])[0]
+        assert torch.equal(butterfly_sums(lanes), want)
 
 
 def test_wrapper_checks_raise():
@@ -333,6 +391,25 @@ def test_outputs_and_arguments_match_the_c_interface():
                 ctypes.c_double: float}[t]
         assert isinstance(a, want), (a, t)
     assert args[-1] == 1 and args[7:9] == (3, 16)   # float64; C cameras, npoly
+
+
+def test_study_marks_copy_patches_the_kernel(tmp_path, monkeypatch):
+    """``tools/pose_lm_study.py --marks`` times a pass's stages on a copy of
+    the kernel source with clock reads put in at fixed anchors: each
+    anchor stands once in the source, so the copy holds all seven marks,
+    and the kernel itself holds none."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(K.SOURCE), "..", "..", "tools", "pose_lm_study.py")
+    spec = importlib.util.spec_from_file_location("pose_lm_study", path)
+    study = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(study)
+    monkeypatch.setattr(study, "STUDY_DIR", str(tmp_path))
+    text = open(study.write_marks(K.SOURCE)).read()
+    assert [f"s.marks[{i}] += now - s.mark_t;" in text for i in range(7)] == [True] * 7
+    assert "pose_lm_marks_read" in text and "s.mark_t = clock64();" in text
+    assert "clock64" not in _SRC and "s.marks" not in _SRC
 
 
 # -- on the card -------------------------------------------------------------------
@@ -413,6 +490,22 @@ def test_kernel_matches_plain(dev, dtype, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", (0, 1, THREADS + 1, 7344))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_matches_plain_at_row_counts(dev, dtype, n):
+    """Row counts that leave ranks of the cluster empty or partly filled."""
+    obs, X, mt0, _ = problem(1, max(n, 1))
+    obs = topt.BAObservations(*(t[:n].contiguous() for t in obs))
+    obs, X, mt0 = in_dtype(obs, X, mt0, dtype)
+    rig_, mt0, obs, X = _to(dev, rig(dtype), mt0, obs, X)
+    got = topt.pose_optimization(rig_, mt0, obs, X)
+    want = topt.pose_optimization_reference(rig_, mt0, obs, X)
+    out = kernel_against_plain(rig_, mt0, obs, X, {}, got, want)
+    if n == 0:
+        assert out["iterations"] == (20, 20) and int(got[2]) == 0 and torch.equal(got[0], mt0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_captures_and_replays(dev, dtype):
     rig_, mt0, obs, X = _to(dev, *_case("seed1", dtype)[:4])
@@ -434,3 +527,5 @@ def test_kernel_captures_and_replays(dev, dtype):
 def test_kernel_uses_no_local_memory_in_float32(dev):
     attrs = K.kernel_attributes(torch.float32, dev)
     assert attrs["local_bytes"] == 0, attrs
+    assert (attrs["cluster"], attrs["threads"]) == (CLUSTER, THREADS) and CLUSTER > 1, attrs
+    assert attrs["max_active_clusters"] >= 1, attrs

@@ -14,6 +14,9 @@ DLT steps), a 0-d integer tensor as an index (``x[argmax]``), and
 (``CUDAGraph.register_generator_state``) and not registered. For the
 generators it also checks that a replay draws what an eager call draws
 from the same state and leaves the generator where the eager call does.
+Last, a launch of a thread-block cluster (``tools/empty_kernel.cu``'s
+``cluster_probe_kernel``: as many blocks as a pose LM launch, each
+reading its neighbour's shared memory after a cluster barrier).
 
     python3 tools/capture_probe.py            # on the card
 
@@ -23,11 +26,16 @@ last line, and as the last line one JSON object, probe -> verdict.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import os
 import subprocess
 import sys
 
 import torch
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+sys.path.insert(0, ROOT)
 
 
 def card() -> str:
@@ -141,8 +149,46 @@ def main() -> None:
         res[f"randint + multinomial, generator {tag}"] = probe(
             f"randint + multinomial, generator {tag}", draw,
             gens=(gen,) if registered else (), check=check)
+    res["cluster launch"] = probe_cluster(dev)
     print(name)
     print(json.dumps(res))
+
+
+def probe_cluster(dev) -> str:
+    """Capture one launch of the cluster probe kernel, one cluster of as
+    many blocks as a pose LM launch; its replay must write what an eager
+    launch writes: block b, rank b + 1 mod the cluster size."""
+    from multicol_slam_tpu_torch.kernels import hamming_nn, pose_lm
+
+    lib = ctypes.CDLL(hamming_nn.build(os.path.join(ROOT, "tools", "empty_kernel.cu"),
+                                       "libempty"))
+    lib.cluster_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.cluster_probe_launch.restype = ctypes.c_int
+    lib.empty_init.restype = ctypes.c_int
+    n = pose_lm.kernel_attributes(torch.float32, dev)["cluster"]
+    if lib.empty_init() != 0:
+        return "refused: empty_init failed"
+    want = (torch.arange(n, dtype=torch.int32, device=dev) + 1) % n
+
+    def launch():
+        out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        err = lib.cluster_probe_launch(out.data_ptr(), n,
+                                       torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"cluster launch failed: cudaError {err}")
+        return out
+
+    def check(g, out):
+        out.fill_(-1)
+        g.replay()
+        torch.cuda.synchronize()
+        eager = launch()
+        torch.cuda.synchronize()
+        return (f"captures; {n} blocks; replay == eager {torch.equal(out, eager)}; "
+                f"each block read its neighbour's rank {torch.equal(out, want)}")
+
+    return probe(f"cluster launch ({n} blocks, distributed shared memory)", launch,
+                 check=check)
 
 
 if __name__ == "__main__":
