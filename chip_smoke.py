@@ -6,9 +6,10 @@ NVIDIA GPU.
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build of the Hamming-NN kernel, the small eigensolvers and the pose
-     LM from multicol_slam_tpu_torch/csrc with nvcc, one process a source,
-     started together, timed;
+  2. build of the Hamming-NN kernel, the small eigensolvers, the pose LM
+     and the two extraction kernels (fast_detect.cu, orb_describe.cu) from
+     multicol_slam_tpu_torch/csrc with nvcc, one process a source, started
+     together, timed;
   3. both entries of the kernel against their plain PyTorch versions on
      the card, both variants: the dense-gate entry (hamming_nn) at the
      WORKING frame's shapes and ragged ones, with fully gated rows and
@@ -23,9 +24,10 @@ Phases, each fatal on failure:
      from frame 0 at the true pose, over 16 frames rendered on the card.
      Every frame must keep >= 15 local-map inliers and stay within 5 cm
      and 1 degree of ground truth, and the main path must launch the
-     window-gated entry twice per frame, the dense-gate entry never, and
-     the pose LM kernel (csrc/pose_lm.cu) once at each of its two sites a
-     frame (PoseSpy);
+     window-gated entry twice per frame, the dense-gate entry never, the
+     pose LM kernel (csrc/pose_lm.cu) once at each of its two sites a
+     frame (PoseSpy), and the extraction kernels (kernels/extract.py:
+     detection's two launches and the descriptor's one) each frame;
   5. the first frames of that run against the port's CPU path (the plain
      Hamming-NN versions) on the same frames and map;
   6. the system from the first frame: MultiColSLAM(calib_dir=...) at its
@@ -221,8 +223,14 @@ Phases, each fatal on failure:
      stage (extraction, motion matching, the motion pose LM, the frustum
      check, local-map matching, the local-map pose LM; record_function
      ranges, stage_device) over 4 frames with the pose LM kernel and with
-     its plain version (the parent's path: Part 0), and the graphed step
-     with each; the step and its two pose LM calls are each captured into
+     its plain version (the parent's path: Part 0), and with the plain
+     extraction chain in place of the extraction kernels, and the graphed
+     step with each; the extraction alone by sub-stage (the pyramid, per
+     level FAST with the fallback and suppression, Harris and the
+     selection, the patches, the descriptor, the rays; or the two kernels
+     and the sort and gathers; extraction_split), the kernels' path
+     against the plain chain; the step and its two pose LM calls are
+     each captured into
      a CUDA graph of their own, whose kernel, copy and fill nodes count
      its device operations exactly: the step's must fall by at least the
      plain pose LM calls' less eight, at most four a kernel call; (c) every chunk of phase 11 (b)'s track_batch run
@@ -314,6 +322,24 @@ Phases, each fatal on failure:
      a pass), the plain version's device us and device operations a call;
      each instance's cluster size, CTA width, registers and local bytes
      are printed.
+ 19. the extraction kernels (kernels/extract.py: csrc/fast_detect.cu,
+     FAST/AGAST with the fallback, suppression, Harris and the bucket
+     maxima in two launches; csrc/orb_describe.cu, a CTA a keypoint: the
+     window, IC angle, blur and ORB bits) at every extractor configuration
+     that phases 4-12 (a) ran (ExtractSpy: the tracking and init
+     extractors at the default, mdBRIEF, organic and eight-camera
+     settings), on its first recorded frame: the kernels' features against
+     the plain chain's on the card (keypoints, levels, responses, validity
+     and rays identical, each level's bucket maxima and indices identical;
+     angles within 1e-5 rad and identical at level 0; descriptor and mask
+     bits identical where the angle is, at most 1e-4 of them apart), each
+     kernel's device us by CUDA-graph replay beside the launch floor, its
+     bound from this input and the plain version's us, the whole
+     extraction both ways in device us and operations, launches over
+     phases 4-12 (a) on the card (held to the wrappers' own counts),
+     registers and local bytes; no single PyTorch call computes either.
+     Their bound takes operations over 33.5 T float32 instructions a
+     second: built with --fmad=false, they issue no FMA.
 
 Each of phases 6, 7, 8, 9, 10, 11 (a) and (b), 12 (a) and (c), 13 (a)
 and 14 (a) sets the launch counts to 0 just before it drives its path and
@@ -630,6 +656,33 @@ POSE_ORDERS = 4
 POSE_F32_ITERS = 2
 POSE_PASS_OPS = 520            # floating-point operations a row a pass (csrc/pose_lm.cu)
 POSE_RECORDS: list = []        # phases 6-9: every call of a unit that runs the pose LM
+# phase 19: the extraction kernels (kernels/extract.py), the JAX package's
+# jnp chains they stand for (no Pallas kernel: XLA fuses them), the
+# angle's bar (the JAX parity tolerance of tests/test_torch_extractor.py),
+# and the work the bounds count: a ring of n pixels' operations a pixel
+# (n differences; each polarity's arc minima and 2 (n - 1) for the two
+# maxima over the arcs, the dark polarity's taken as the arcs' maxima of
+# the same differences, so no negation counts; FAST_PIXEL_OPS: the
+# score's and thresholds' compares, the cell's flag, the suppression, the
+# mask and border, the bucket's compare), Harris's at a
+# survivor (49 x (two differences, two halvings, three products, three
+# sums), the row sums, the response and + 1e-6), the descriptor's a
+# keypoint (the moments, the blur's sums, scale and rounding, atan2, cos,
+# sin) and an ORB test (two rotated points, each four products, two sums,
+# two roundings and four clamps, then the compare); built with
+# --fmad=false, each is one float32 instruction, so the bound divides by
+# F32_INSTR_S
+DETECT_SOURCE = "multicol_slam_tpu_torch/csrc/fast_detect.cu"
+DESCRIBE_SOURCE = "multicol_slam_tpu_torch/csrc/orb_describe.cu"
+DETECT_REPLACES = "multicol_slam_tpu/ops/fast.py:150"
+DESCRIBE_REPLACES = "multicol_slam_tpu/ops/brief.py:69"
+EXTRACT_NOTE = ("no Pallas kernel: the JAX package's jnp chain, which XLA fuses "
+                "(multicol_slam_tpu/models/extractor.py:140-212)")
+MAX_ANGLE_DIFF = 1e-5
+FAST_PIXEL_OPS = 22
+HARRIS_OPS = 49 * 10 + 21 + 9
+DESCRIBE_KP_OPS = 4 * 961 + 53 * 49 * 5 + 49 * 49 * 7 + 60
+ORB_TEST_OPS = 25
 ENTRY = {"radius": "hamming_nn_radius", "dense": "hamming_nn"}
 SOURCE = "multicol_slam_tpu_torch/csrc/hamming_nn.cu"
 REPLACES = "multicol_slam_tpu/ops/pallas/hamming_nn.py:146"
@@ -638,6 +691,7 @@ LIBRARY = ("none: torch has no popcount, and no call reduces to a gated best, "
            "second-best and argmin")
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory
 F32_OPS_S = 67e12              # H100 SXM float32 outside the tensor cores
+F32_INSTR_S = F32_OPS_S / 2    # the same in instructions: 67e12 counts an FMA as two
 POPC_S = 16 * 132 * 1.98e9     # popcounts per clock per SM x SMs x boost clock
 
 
@@ -1089,6 +1143,79 @@ class EigSpy:
         EigSpy.active = None
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+class ExtractSpy:
+    """While entered, every extractor that ``make_extractor`` builds (the
+    systems' through ``system.make_extractor``, this script's through
+    ``extractor.make_extractor``) keeps its arguments and the first images
+    it extracts on the card at each configuration and camera count
+    (outside a capture), and counts that configuration's calls on the card
+    through graphs.on_launch, so at every replay of a graph that holds it,
+    until the spy exits. Each such call launches detection twice and the
+    descriptor once: ``mark`` (where the wrappers' counts are set to 0) and
+    ``__exit__`` hold the calls counted in between to the wrappers' own
+    counts, so ``launches`` gives each configuration's launches."""
+
+    def __init__(self):
+        self.first = {}            # (cfg, C) -> (cfg, cams, masks, hw, extract, images)
+        self.calls = Counter()
+        self.marked = Counter()
+        self.open = True
+        self.lock = threading.Lock()
+
+    def _count(self, key):
+        with self.lock:
+            if self.open:
+                self.calls[key] += 1
+
+    def launches(self, key) -> tuple:
+        """(detection, descriptor) launches of a configuration."""
+        return 2 * self.calls[key], self.calls[key]
+
+    def mark(self):
+        """The wrappers' counts were set to 0 here."""
+        with self.lock:
+            self.marked = Counter(self.calls)
+
+    def __enter__(self):
+        from multicol_slam_tpu_torch.models import extractor, system
+        from multicol_slam_tpu_torch.utils import graphs
+
+        real = self.real = extractor.make_extractor
+        spy = self
+
+        def make_extractor(cfg, cams, masks, hw):
+            ex = real(cfg, cams, masks, hw)
+
+            def extract(images):
+                key = (cfg, images.shape[0])
+                if images.is_cuda:
+                    if not graphs.capturing():
+                        with spy.lock:
+                            if key not in spy.first:
+                                spy.first[key] = (cfg, cams, masks, hw, ex, images.clone())
+                    graphs.on_launch(lambda: spy._count(key))
+                return ex(images)
+            extract.plain = ex.plain
+            return extract
+
+        extractor.make_extractor = system.make_extractor = make_extractor
+        return self
+
+    def __exit__(self, *exc):
+        from multicol_slam_tpu_torch.kernels import extract as extract_k
+        from multicol_slam_tpu_torch.models import extractor, system
+
+        extractor.make_extractor = system.make_extractor = self.real
+        torch.cuda.synchronize()
+        with self.lock:
+            self.open = False
+            calls = sum((self.calls - self.marked).values())
+        counted = (extract_k.detect.launches, extract_k.describe.launches)
+        if exc[0] is None and counted != (2 * calls, calls):
+            fail(f"the extractors' {calls} calls on the card since phase 4's count was set "
+                 f"to 0 do not account for the wrappers' launches {counted}")
 
 
 class PoseSpy:
@@ -3312,10 +3439,12 @@ def profiled(fn, n):
 
 class Ranges:
     """While entered, each target (owner, attribute, label) runs inside a
-    ``record_function`` range named STAGE + label."""
+    ``record_function`` range named STAGE + label, and each of
+    ``wrapped`` (owner, attribute, replacement) is replaced."""
 
-    def __init__(self, *targets):
+    def __init__(self, *targets, wrapped=()):
         self.targets = targets
+        self.wrapped = wrapped
 
     def __enter__(self):
         self.saved = []
@@ -3327,6 +3456,9 @@ class Ranges:
                     return _f(*a, **k)
             self.saved.append((owner, attr, f, attr in vars(owner)))
             setattr(owner, attr, ranged)
+        for owner, attr, replacement in self.wrapped:
+            self.saved.append((owner, attr, getattr(owner, attr), attr in vars(owner)))
+            setattr(owner, attr, replacement)
         return self
 
     def __exit__(self, *exc):
@@ -3344,9 +3476,10 @@ def stage_device(prof, within: str | None = None) -> tuple:
     fill) is traced to the host operation that launched it (its linked
     correlation id) and counts in every STAGE range open on that thread at
     that host moment. A kernel with no such link (a ctypes kernel: its
-    launch is no PyTorch operation) counts, if it is the pose LM kernel, in
-    the pose LM's stage ranges by order (the n-th launch in the n-th range
-    on the host, and in the ranges open around that one); any other such
+    launch is no PyTorch operation) counts, if UNLINKED_KERNELS names it,
+    in the stage ranges of its label by order (the n-th launch of that
+    kernel in the n-th such range on the host, and in the ranges open
+    around that one); any other such
     kernel in every stage whose range holds it on the device's timeline,
     where the profiler draws each range from its first kernel's start to
     its last kernel's end. With ``within``, only activity inside that
@@ -3366,11 +3499,14 @@ def stage_device(prof, within: str | None = None) -> tuple:
         span[lb] += (end - start) / 1e3
     acts = [e for e in evs
             if e.device_type() == DeviceType.CUDA and not e.name().startswith(STAGE)]
-    launched = sorted((e for e in acts if "pose_lm" in e.name()
-                       and host.get(e.linked_correlation_id()) is None),
-                      key=lambda e: e.start_ns())
-    held = sorted((r for r in ranges if r[0].startswith("pose_lm")), key=lambda r: r[1])
-    own = {id(e): r for e, r in zip(launched, held)} if len(launched) == len(held) else {}
+    own = {}
+    for kernel, label in UNLINKED_KERNELS.items():
+        launched = sorted((e for e in acts if kernel in e.name()
+                           and host.get(e.linked_correlation_id()) is None),
+                          key=lambda e: e.start_ns())
+        held = sorted((r for r in ranges if r[0].startswith(label)), key=lambda r: r[1])
+        if len(launched) == len(held):
+            own.update({id(e): r for e, r in zip(launched, held)})
     for e in acts:
         us = e.duration_ns() / 1e3
         total += us
@@ -3414,6 +3550,78 @@ def working_ranges(pose_fn):
             yield
     finally:
         optimizer.pose_optimization = saved
+
+
+# ctypes kernels (their launches have no PyTorch operation to link them
+# to a range) by a part of their name, and the label of the ranges that
+# launch each once
+UNLINKED_KERNELS = {"pose_lm": "pose_lm", "cell_flags": "x_detect", "tile_maxima": "x_detect",
+                    "describe": "x_describe"}
+# the extraction's sub-stages (phase 14 (b), tools/measure_system.py): the
+# plain chain's (per level: FAST with the fallback and the suppression,
+# Harris, the selection) and the kernels' path's (x_detect, x_describe);
+# what no range holds is the rest
+EXTRACT_PER_LEVEL = ("x_fast_nms", "x_harris", "x_selection")
+
+
+def extraction_ranges(sizes):
+    """While entered, the extractor's sub-stages run inside STAGE ranges:
+    x_pyramid, x_fast_nms@l, x_harris@l and x_selection@l (the plain
+    chain's per level; ``sizes`` the levels' (H, W)), x_patches (the patch
+    gather, IC angle and blur), x_descriptor, x_detect and x_selection (the
+    kernels' path: the detection kernel, the sort and gathers), x_describe
+    (the descriptor kernel), x_rays."""
+    from multicol_slam_tpu_torch.kernels import extract as extract_k
+    from multicol_slam_tpu_torch.models import extractor
+    from multicol_slam_tpu_torch.ops import brief, fast, pyramid
+
+    level_of = {tuple(hw): lvl for lvl, hw in enumerate(sizes)}
+    per_level = []
+    for (owner, attr), label in zip(((fast, "fast_with_fallback"), (fast, "harris_score"),
+                                     (fast, "select_uniform_topk")), EXTRACT_PER_LEVEL):
+        f = getattr(owner, attr)
+
+        def ranged(img, *a, _f=f, _label=label, **k):
+            with torch.profiler.record_function(
+                    f"{STAGE}{_label}@{level_of.get(tuple(img.shape[-2:]), '?')}"):
+                return _f(img, *a, **k)
+        per_level.append((owner, attr, ranged))
+    targets = [(pyramid, "build_pyramid", "x_pyramid"), (brief, "extract_patches", "x_patches"),
+               (brief, "ic_angle_patches", "x_patches"), (brief, "blur_patches_valid", "x_patches"),
+               (brief, "orb_from_patches", "x_descriptor"),
+               (brief, "dbrief_from_patches", "x_descriptor"),
+               (brief, "mdbrief_from_patches", "x_descriptor"),
+               (extract_k, "detect", "x_detect"), (extractor, "select_keypoints", "x_selection"),
+               (extract_k, "describe", "x_describe"), (extractor, "img_to_world", "x_rays")]
+    return Ranges(*targets, wrapped=per_level)
+
+
+def extraction_split(extract, images, sizes, n: int = STAGE_FRAMES) -> tuple:
+    """Medians over ``images`` (n frames, each profiled alone after an
+    unprofiled call) of ``extract``'s device us and device operations by
+    sub-stage (extraction_ranges over the pyramid's level ``sizes``;
+    "extraction" the whole call's, "(rest)" what no sub-stage holds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = []
+    for i in range(n):
+        with extraction_ranges(sizes):
+            extract(images[i])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with torch.profiler.record_function(STAGE + "extraction"):
+                    extract(images[i])
+                torch.cuda.synchronize()
+        us, ops, total, n_ops, _ = stage_device(prof)
+        us["(rest)"] = us.get("extraction", 0.0) - sum(v for k, v in us.items()
+                                                        if k.startswith("x_"))
+        ops["(rest)"] = ops.get("extraction", 0) - sum(v for k, v in ops.items()
+                                                        if k.startswith("x_"))
+        runs.append((us, ops))
+    labels = sorted({k for us, _ in runs for k in us})
+    med = lambda j: {lb: round(statistics.median(r[j].get(lb, 0) for r in runs), 3)
+                     for lb in labels}
+    return med(0), med(1)
 
 
 def ranged_extract(extract):
@@ -3534,9 +3742,22 @@ def step_pose_calls(args, kw) -> list:
     return calls
 
 
+@contextlib.contextmanager
+def plain_extraction(slam):
+    """While entered, ``slam``'s extractor runs its plain chain (the
+    parent's path) on the card."""
+    saved = slam.extract
+    slam.extract = saved.plain
+    try:
+        yield
+    finally:
+        slam.extract = saved
+
+
 def stage_report(args, kw, card, n, variants) -> dict:
     """Phase 14 (b)'s breakdown, for each variant (label, the pose LM, a
-    graphed working_track_step that runs it): the eager step's device us
+    graphed working_track_step that runs it, and a context it runs in or
+    None): the eager step's device us
     and operations a frame by stage over n frames (working_stages,
     profiled); the device operations of the step, and of each of its pose
     LM calls, captured on the first frame's inputs into a CUDA graph of
@@ -3546,13 +3767,14 @@ def stage_report(args, kw, card, n, variants) -> dict:
     side = torch.cuda.Stream()
     calls = step_pose_calls(args[0], kw)
     out = {}
-    for label, pose_fn, graphed in variants:
-        us, ops, total, n_ops, n_calls = working_stages(args, kw, pose_fn, n)
-        step_ops, step_nodes = graph_operations(lambda: graphed.fn(*args[0], **kw), side)
-        lm_graph_ops = sum(graph_operations(lambda a=a, k=k: pose_fn(*a, **k), side)[0]
-                           for a, k in calls)
-        graphed(*args[0], **kw)               # a first call captures outside the profile
-        runs = [profiled(lambda _, i=i: graphed(*args[i], **kw), 1) for i in range(n)]
+    for label, pose_fn, graphed, ctx in variants:
+        with ctx or contextlib.nullcontext():
+            us, ops, total, n_ops, n_calls = working_stages(args, kw, pose_fn, n)
+            step_ops, step_nodes = graph_operations(lambda: graphed.fn(*args[0], **kw), side)
+            lm_graph_ops = sum(graph_operations(lambda a=a, k=k: pose_fn(*a, **k), side)[0]
+                               for a, k in calls)
+            graphed(*args[0], **kw)               # a first call captures outside the profile
+            runs = [profiled(lambda _, i=i: graphed(*args[i], **kw), 1) for i in range(n)]
         g_ms, g_wall = sum(r[1] for r in runs), sum(r[2] for r in runs)
         top = runs[-1][3]
         lm_us = sum(us[s] for s in WORKING_STAGES if s.startswith("pose_lm"))
@@ -3581,6 +3803,7 @@ def graph_phase(dev, knn, card, frames, gt, scans):
     track_batch chunks, each run again through the eager scan on copies of
     its inputs: identical. Returns the sites' kernel JSON entries."""
     from multicol_slam_tpu_torch.models import optimizer, tracking
+    from multicol_slam_tpu_torch.ops import pyramid
     from multicol_slam_tpu_torch.utils import config_io, graphs
 
     t_a = time.perf_counter()
@@ -3611,10 +3834,26 @@ def graph_phase(dev, knn, card, frames, gt, scans):
           f"{cuda_ms(lambda: runs['graphed'](0), reps=10, warm=2):.3f} ms ({card})")
     # Part 0 and the step by stage: the kernel's pose LM against the plain
     # version's (the parent's path), eager by stage and each in a graph
+    slam = args[0][0].__self__
     report = stage_report(args, kw, card, STAGE_FRAMES, [
-        ("kernel", optimizer.pose_optimization, step),
-        ("plain", optimizer.pose_optimization_reference, graphs.jit(plain_working_step))])
-    k, p = report["kernel"], report["plain"]
+        ("kernel", optimizer.pose_optimization, step, None),
+        ("plain", optimizer.pose_optimization_reference, graphs.jit(plain_working_step), None),
+        ("plain extraction", optimizer.pose_optimization,
+         graphs.jit(tracking.working_track_step), plain_extraction(slam))])
+    k, p, x = report["kernel"], report["plain"], report["plain extraction"]
+    print(f"graph (b): extraction in the step {x['us']['extraction']:.1f} -> "
+          f"{k['us']['extraction']:.1f} device us and {x['ops']['extraction']} -> "
+          f"{k['ops']['extraction']} operations a frame (eager, the plain chain -> the "
+          f"kernels); the step {x['total_us']:.1f} -> {k['total_us']:.1f} us; its graph "
+          f"{x['step_ops']} -> {k['step_ops']} device operations; graphed device ms a frame "
+          f"{x['graphed_ms']:.3f} -> {k['graphed_ms']:.3f} ({card})")
+    s = slam.settings
+    sizes = pyramid.level_sizes(frames.shape[-2], frames.shape[-1], s.n_levels,
+                                s.scale_factor)
+    for label, fn in (("the plain chain", slam.extract.plain), ("the kernels", slam.extract)):
+        us, ops = extraction_split(fn, frames[1:], sizes)
+        print(f"graph (b) extraction by sub-stage, {label} (eager, medians of {STAGE_FRAMES} "
+              f"frames): device us {us}; device operations {ops} ({card})")
     drop, need = p["step_ops"] - k["step_ops"], p["lm_graph_ops"] - 8
     per_call = k["lm_graph_ops"] / max(k["lm_graph_calls"], 1)
     print(f"graph (b): the step's device operations a frame (its CUDA graph's nodes) "
@@ -4527,6 +4766,177 @@ def pose_phase(card, spy, floor_ms):
             for site, w in by_site.items()]
 
 
+def extraction_name(cfg, C: int) -> str:
+    kind = "mdbrief" if cfg.learn_masks else "dbrief" if cfg.use_dbrief else "orb"
+    return (f"{cfg.detector_mask}-{kind}{cfg.desc_bytes}-{cfg.n_features}f-{cfg.n_levels}l-"
+            f"th{cfg.fast_th}/{cfg.fast_th_min}-{'harris' if cfg.use_harris else 'fast'}-{C}cam")
+
+
+def hold_extraction(name, plain, kernel) -> dict:
+    """The kernels' features against the plain chain's on the card (phase
+    19's bars): keypoints, levels, responses, validity and rays identical;
+    the angle within MAX_ANGLE_DIFF and identical at level 0; descriptor
+    and mask bits identical where the angle is, at most
+    MAX_MDBRIEF_BIT_DIFF of them apart in all. Returns the measures."""
+    from multicol_slam_tpu_torch.ops.hamming import unpack_bits_u32
+
+    for field in ("xy", "level", "response", "valid", "ray"):
+        if not torch.equal(getattr(plain, field), getattr(kernel, field)):
+            fail(f"extraction {name}: the kernels' {field} differs from the plain chain's")
+    same = plain.angle == kernel.angle
+    d_angle = float((plain.angle - kernel.angle).abs().max())
+    lvl0 = plain.level == 0
+    out = dict(angle_err=d_angle, angle_equal=round(float(same.float().mean()), 4),
+               level0_angle_equal=bool(same[lvl0].all()))
+    for field in ("desc", "desc_mask"):
+        a, b = unpack_bits_u32(getattr(plain, field)), unpack_bits_u32(getattr(kernel, field))
+        out[field + "_bits_apart"] = float((a != b).float().mean())
+        out[field + "_apart_at_equal_angle"] = int((a != b)[same].sum())
+    if d_angle > MAX_ANGLE_DIFF or not out["level0_angle_equal"] \
+            or out["desc_apart_at_equal_angle"] or out["desc_mask_apart_at_equal_angle"] \
+            or out["desc_bits_apart"] > MAX_MDBRIEF_BIT_DIFF \
+            or out["desc_mask_bits_apart"] > MAX_MDBRIEF_BIT_DIFF:
+        fail(f"extraction {name}: the kernels' angles or bits against the plain chain's {out}")
+    return out
+
+
+def window_pixels(sizes, yx, level) -> int:
+    """Distinct canvas pixels of the keypoints' 53 x 53 windows (the
+    descriptor kernel's reads), clamped as extract_patches clamps them."""
+    rows = torch.tensor(np.cumsum([0] + [h for h, _ in sizes[:-1]]), device=yx.device)
+    canvas_h, w0, side = sum(h for h, _ in sizes), sizes[0][1], 53
+    y0 = (rows[level.long()] + yx[..., 0] - 26).clamp(0, canvas_h - side)
+    x0 = (yx[..., 1] - 26).clamp(0, w0 - side)
+    ar = torch.arange(side, device=yx.device)
+    idx = ((y0[..., None] + ar)[..., :, None] * w0 + (x0[..., None] + ar)[..., None, :])
+    C = yx.shape[0]
+    seen = torch.zeros(C, canvas_h * w0, dtype=torch.bool, device=yx.device)
+    seen.scatter_(1, idx.reshape(C, -1), True)
+    return int(seen.sum())
+
+
+def extraction_entries(card, spy, floor_ms) -> list:
+    """Phase 19: at every extractor configuration that phases 4-12 (a) ran
+    (ExtractSpy: its first recorded images), the kernels' path against
+    the plain chain on the card (hold_extraction; and each level's bucket
+    maxima and indices identical), then each kernel timed on those inputs
+    (device us by CUDA-graph replay) beside its launch floor (empty
+    kernels of 256 threads, two for detection's two launches), its bound
+    (bytes over 3.35 TB/s or operations over 33.5 T float32 instructions
+    a second, the larger;
+    counted from this input: pixels, NMS survivors, keypoints, the
+    windows' distinct pixels) and its plain version; the whole extraction
+    both ways; launches (the spy's calls of that configuration, two
+    detection launches and one descriptor launch a call), registers and
+    local bytes. Returns the kernels line's entries."""
+    from multicol_slam_tpu_torch.kernels import extract as ek
+    from multicol_slam_tpu_torch.models import extractor
+    from multicol_slam_tpu_torch.ops import brief, fast, pyramid
+
+    entries = []
+    for key, (cfg, cams, masks, hw, ex, images) in spy.first.items():
+        C = key[1]
+        name = extraction_name(cfg, C)
+        dev = images.device
+        plain, kernel = ex.plain(images), ex(images)
+        torch.cuda.synchronize()
+        held = hold_extraction(name, plain, kernel)
+        sizes = pyramid.level_sizes(*hw, cfg.n_levels, cfg.scale_factor)
+        budgets = extractor.features_per_level(cfg.n_features, cfg.n_levels, cfg.scale_factor)
+        lv = [lvl for lvl in range(cfg.n_levels) if budgets[lvl] > 0]
+        buckets = [extractor._level_buckets(*sizes[lvl], budgets[lvl]) for lvl in lv]
+        pyr = pyramid.build_pyramid(images.to(torch.float32), cfg.n_levels, cfg.scale_factor)
+        levels = [pyr[lvl] for lvl in lv]
+        mk = [torch.from_numpy(np.asarray(masks[lvl]) > 0).to(dev) for lvl in lv]
+        kw = dict(th_hi=cfg.fast_th, th_lo=cfg.fast_th_min, cell=cfg.cell, border=cfg.border,
+                  ring=cfg.detector_mask, harris=cfg.use_harris)
+        got, want = ek.detect(levels, mk, buckets, **kw), ek.detect_reference(levels, mk,
+                                                                               buckets, **kw)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"extraction {name}: the bucket maxima or their indices differ from plain")
+        scales = torch.tensor(pyramid.scale_factors(cfg.n_levels, cfg.scale_factor),
+                              device=dev)[plain.level.long()]
+        yx = torch.round(plain.xy.flip(-1) / scales[..., None]).to(torch.int32).contiguous()
+        pattern = None if cfg.use_dbrief else torch.from_numpy(
+            brief.make_pattern(cfg.n_pairs)).to(dev)
+        lvl32 = plain.level.contiguous()
+        times = dict(
+            detect=device_ms(lambda: ek.detect(levels, mk, buckets, **kw)),
+            detect_plain=device_ms(lambda: ek.detect_reference(levels, mk, buckets, **kw),
+                                   reps=2, rounds=3),
+            describe=device_ms(lambda: ek.describe(pyr, yx, lvl32, pattern)),
+            describe_plain=device_ms(lambda: ek.describe_reference(pyr, yx, lvl32, pattern),
+                                     reps=2, rounds=3),
+            extraction=device_ms(lambda: ex(images), reps=3, rounds=5),
+            extraction_plain=device_ms(lambda: ex.plain(images), reps=1, rounds=3))
+        ops = dict(extraction=profiled(lambda i: ex(images), 1)[0],
+                   extraction_plain=profiled(lambda i: ex.plain(images), 1)[0])
+        # the bounds, from this input
+        circle, arc, _ = fast.DETECTOR_MASKS[cfg.detector_mask]
+        n = len(circle)
+        pixels = sum(C * h * w for h, w in (sizes[lvl] for lvl in lv))
+        survivors = 0
+        if cfg.use_harris:
+            for img, m, (h, w) in zip(levels, mk, (sizes[lvl] for lvl in lv)):
+                nms = fast.fast_with_fallback(img, cfg.fast_th, cfg.fast_th_min, cfg.cell,
+                                              cfg.detector_mask) > 0
+                yy, xx = torch.arange(h, device=dev)[:, None], torch.arange(w, device=dev)
+                b = cfg.border
+                inside = (yy >= b) & (yy < h - b) & (xx >= b) & (xx < w - b)
+                survivors += int((nms & m & inside).sum())
+        det_ops = pixels * (n + 2 * arc_min_ops(n, arc) + 2 * (n - 1) + FAST_PIXEL_OPS) \
+            + survivors * HARRIS_OPS
+        T = got[0].shape[-1]
+        det_bytes = pixels * 5 + C * len(lv) * T * 8
+        kps = C * plain.level.shape[1]
+        out_b = kps * (4 + (4 * cfg.n_words if pattern is not None else 49 * 49 * 4))
+        desc_bytes = 4 * window_pixels(sizes, yx, lvl32) + 12 * kps + out_b + (
+            0 if pattern is None else pattern.numel() * 4)
+        desc_ops = kps * (DESCRIBE_KP_OPS + (ORB_TEST_OPS * cfg.n_pairs if pattern is not None
+                                             else 0))
+        n_detect, n_describe = spy.launches(key)
+        for kernel_name, work, t, t_plain, launches, source, replaces, attrs, floor in (
+                ("fast_detect", (det_bytes, det_ops), times["detect"], times["detect_plain"],
+                 n_detect, DETECT_SOURCE, DETECT_REPLACES,
+                 {k: ek.kernel_attributes(k, cfg.detector_mask) for k in ("cell_flags",
+                                                                          "tile_maxima")},
+                 2 * floor_ms),
+                ("orb_describe", (desc_bytes, desc_ops), times["describe"],
+                 times["describe_plain"], n_describe, DESCRIBE_SOURCE, DESCRIBE_REPLACES,
+                 {"describe": ek.kernel_attributes("describe")}, floor_ms)):
+            t_bytes, t_ops = work[0] / HBM_BYTES_S * 1e3, work[1] / F32_INSTR_S * 1e3
+            bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                                              "operations")
+            entries.append({
+                "name": f"{kernel_name}@{name}", "route": "cuda", "source": source,
+                "replaces": replaces, "replaces_note": EXTRACT_NOTE, "launches": launches,
+                "max_abs_err": 0.0 if kernel_name == "fast_detect" else held["angle_err"],
+                "ms": t, "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "library": "none: no single PyTorch call computes it",
+                "floor_ms": floor, "attributes": attrs, "bytes": work[0],
+                "operations": work[1]})
+            print(f"{kernel_name}@{name}: {launches} launches over phases 4-12 (a); device "
+                  f"{t * 1e3:.2f} us a call (launch floor {floor * 1e3:.2f} us; bound "
+                  f"{bound_ms * 1e3:.3f} us, {bound_by}: {work[0]} bytes, {work[1]} "
+                  f"operations), the plain version {t_plain * 1e3:.2f} us; {attrs} ({card})")
+        print(f"extraction@{name}: {C} cameras, {kps} keypoints, {pixels} pixels, {survivors} "
+              f"Harris survivors: the kernels' path {times['extraction'] * 1e3:.2f} device us "
+              f"and {ops['extraction']} device operations a call, the plain chain "
+              f"{times['extraction_plain'] * 1e3:.2f} us and {ops['extraction_plain']}; "
+              f"against the plain chain {held} ({card})")
+    return entries
+
+
+def arc_min_ops(n: int, arc: int) -> int:
+    """The elementwise minima fast._ring_min_arc takes over a ring of n."""
+    width, ops = 1, 0
+    while 2 * width <= arc:
+        ops += n
+        width *= 2
+    rest = arc - width
+    return ops + (n + arc_min_ops(n, rest) if rest else 0)
+
+
 def reloc_error(m, poses, gt, at, i):
     """(m, degrees): frame i's returned pose (poses: frame -> (4, 4) or
     None) against ground truth, both relative to frame at - 1: its pose in
@@ -4613,6 +5023,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on an NVIDIA GPU only")
     from multicol_slam_tpu_torch.kernels import hamming_nn as knn
+    from multicol_slam_tpu_torch.kernels import extract as extract_k
     from multicol_slam_tpu_torch.kernels import pose_lm, small_eig
     from multicol_slam_tpu_torch.models import matcher, tracking
     from multicol_slam_tpu_torch.utils import config_io, synthetic
@@ -4641,6 +5052,8 @@ def main() -> None:
     # -- 2. build: one nvcc a source, all started together -------------------
     t0 = time.perf_counter()
     builds = [threading.Thread(target=lib.load_library) for lib in (knn, small_eig, pose_lm)]
+    builds += [threading.Thread(target=extract_k.load_library, args=(which,))
+               for which in ("detect", "describe")]
     builds.append(threading.Thread(target=lambda: EMPTY.update(lib=empty_library(knn))))
     for b in builds:
         b.start()
@@ -4649,9 +5062,10 @@ def main() -> None:
     knn.load_library()          # raises here if its build failed
     small_eig.load_library()
     pose_lm.load_library()
+    extract_k.load_library()
     if "lib" not in EMPTY:
         EMPTY["lib"] = empty_library(knn)
-    print(f"kernel build s {time.perf_counter() - t0:.3f}, the three kernel sources and "
+    print(f"kernel build s {time.perf_counter() - t0:.3f}, the five kernel sources and "
           f"{EMPTY_SOURCE} at once ({card})")
     mark("2 build")
 
@@ -4673,6 +5087,8 @@ def main() -> None:
     mark("3 entries")
 
     # -- 4. the WORKING frame at the default configuration ------------------
+    # every extractor of phases 4-12 (a) keeps its first inputs (phase 19)
+    extract_spy = ExtractSpy().__enter__()
     settings = config_io.SlamSettings()
     tcfg = tracking.TrackerConfig()
     rig_cpu, _ = config_io.load_mcs(config_io.SYNTH_RIG_DIR)
@@ -4695,12 +5111,18 @@ def main() -> None:
     # the main path, counted: one chunk over B frames
     reset_launches(knn)
     pose_lm.pose_lm.launches = 0
+    extract_k.detect.launches = extract_k.describe.launches = 0
+    extract_spy.mark()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with SiteSpy(knn, matcher) as spy, PoseSpy() as pose_spy:
         carry, ys = run_chunk(extract, rig, frames[1:], st, params, settings, tcfg)
     torch.cuda.synchronize()
     chunk_s = time.perf_counter() - t0
+    extract_launches = (extract_k.detect.launches, extract_k.describe.launches)
+    if extract_launches != (2 * B, B):
+        fail(f"the extraction kernels launched {extract_launches} times (detection's two "
+             f"launches, the descriptor) over {B} frames; want {(2 * B, B)}")
     launches = knn.hamming_nn_radius.launches
     if launches != 2 * B or knn.hamming_nn.launches:
         fail(f"hamming_nn_radius launched {launches} times and hamming_nn "
@@ -4821,6 +5243,7 @@ def main() -> None:
 
     # -- 12. the stretch configuration, self-calibration, a dynamic scene -----
     ring_slam, ring, ring_entries = ring_phase(dev, knn, card)
+    extract_spy.__exit__(None, None, None)
     mark("12a eight-camera ring")
     selfcal_phase(dev, card, ring_slam, ring)
     mark("12b self-calibrating BA")
@@ -4873,12 +5296,17 @@ def main() -> None:
     pose_entries += pose_phase(card, sys_pose_spy, floor_ms)
     mark("18 pose LM")
 
+    # -- 19. the extraction kernels at every extractor configuration of phases 4-12 (a) -----
+    extract_entries = extraction_entries(card, extract_spy, launch_floor_ms(EMPTY["lib"], 256))
+    mark("19 extraction kernels")
+
     print(f"wall s by phase {phase_s}, whole script {time.perf_counter() - t_script:.3f} "
           f"({card})")
     print(json.dumps({"kernels": wf_entries + sys_entries + reloc_entries + loop_entries
                       + md_entries + organic_entries + async_entries + ring_entries
                       + dyn_entries + room_entries + graph_entries + mapping_entries
-                      + loop_graph_entries + tracker_entries + pose_entries}))
+                      + loop_graph_entries + tracker_entries + pose_entries
+                      + extract_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

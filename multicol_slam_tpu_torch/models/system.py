@@ -164,7 +164,8 @@ class MultiColSLAM:
         self._kf_ready: dict[int, torch.cuda.Event] = {}
         if async_mapping:
             if self.device.type == "cuda":
-                self._mapper_stream = torch.cuda.Stream(device=self.device)
+                # a stream no graph pool's capture runs on (graphs.own_stream)
+                self._mapper_stream = graphs.own_stream(self.device)
             self._mapper_thread = threading.Thread(
                 target=self._mapper_loop, name="multicol-mapper", daemon=True)
             self._mapper_thread.start()
@@ -497,6 +498,9 @@ class MultiColSLAM:
             if self._mapper_thread.is_alive():
                 raise RuntimeError("the mapper thread did not stop within 120 s")
             self._mapper_thread = None
+            if self._mapper_stream is not None:
+                graphs.release_stream(self._mapper_stream)
+                self._mapper_stream = None
         self._raise_mapper_error()
 
     def save_trajectory(self, path: str):

@@ -143,15 +143,13 @@ def fast_with_fallback(img: torch.Tensor, th_hi: float, th_lo: float,
     return nonmax_3x3(torch.where(use_hi, s_hi, s_lo))
 
 
-def select_uniform_topk(score: torch.Tensor, mask: torch.Tensor, k: int,
-                        bucket: int, border: int = 16):
-    """Spatially uniform top-k: best corner per bucket x bucket tile (first
-    maximum in raster order), then the k best tiles, ties to the lower
-    tile index (``lax.top_k`` order, kept by a stable sort).
-
-    score: (..., H, W); mask: (..., H, W) bool. Returns yx (..., k, 2)
-    int32, resp (..., k) float32, valid (..., k) bool.
-    """
+def bucket_maxima(score: torch.Tensor, mask: torch.Tensor, bucket: int,
+                  border: int = 16):
+    """The best corner of each bucket x bucket tile of ``score`` (..., H, W)
+    where ``mask`` (..., H, W) holds and ``border`` pixels inside the
+    image, the tiles row-major over the image padded with zeros to whole
+    tiles: (values (..., n_tiles), first maximum's index inside its tile
+    in raster order (..., n_tiles) int64, tiles a row)."""
     h, w = score.shape[-2:]
     lead = tuple(score.shape[:-2])
     dev = score.device
@@ -167,7 +165,21 @@ def select_uniform_topk(score: torch.Tensor, mask: torch.Tensor, k: int,
     tiles = sp.reshape(lead + (nby, bucket, nbx, bucket)).transpose(-3, -2)
     tiles = tiles.reshape(lead + (nby * nbx, bucket * bucket))
     bvals, bargs = tiles.max(-1)   # first maximum
-    kk = min(k, nby * nbx)
+    return bvals, bargs, nbx
+
+
+def select_uniform_topk(score: torch.Tensor, mask: torch.Tensor, k: int,
+                        bucket: int, border: int = 16):
+    """Spatially uniform top-k: best corner per bucket x bucket tile (first
+    maximum in raster order), then the k best tiles, ties to the lower
+    tile index (``lax.top_k`` order, kept by a stable sort).
+
+    score: (..., H, W); mask: (..., H, W) bool. Returns yx (..., k, 2)
+    int32, resp (..., k) float32, valid (..., k) bool.
+    """
+    lead = tuple(score.shape[:-2])
+    bvals, bargs, nbx = bucket_maxima(score, mask, bucket, border)
+    kk = min(k, bvals.shape[-1])
     order = torch.sort(-bvals, dim=-1, stable=True).indices[..., :kk]
     resp = torch.gather(bvals, -1, order)
     within = torch.gather(bargs, -1, order)

@@ -27,7 +27,8 @@ key, replayed on every later call with that key.
   frame's ``last`` features, a keyframe's features handed to the
   mapper).
 - Graphs allocate from the memory pool of their ``Pool`` (one memory
-  pool and one side stream per device): graphs of one pool may share
+  pool and one side stream per device, the stream ``own_stream``'s):
+  graphs of one pool may share
   memory, so they replay one at a time; graphs that replay at the same
   time on two threads' streams (the tracker's steps and the async
   mapper's units) hold two pools. ``jit`` without a pool uses the
@@ -73,6 +74,7 @@ collector).
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import threading
 import time
@@ -215,9 +217,61 @@ def _key(spec, leaves):
 
 # -- CUDA ----------------------------------------------------------------------
 
+CU_STREAM_NON_BLOCKING = 1
+_free_streams: dict = {}        # device index -> own_stream's streams given back
+_streams_lock = threading.RLock()   # a Pool's finalizer may run inside own_stream
+
+
+def own_stream(device: torch.device) -> torch.cuda.ExternalStream:
+    """A non-blocking CUDA stream on ``device`` that no other caller holds.
+    ``torch.cuda.Stream()`` hands out PyTorch's pool of 32 streams of a
+    priority in turn, so in a process that has made many, two of its
+    streams can be one: an async mapper's stream a graph pool's side
+    stream, whose capture then sees the mapper's host-to-device copy. A
+    stream given back by ``release_stream`` is handed out again; else one
+    is made in the device's primary context by libcuda's
+    ``cuStreamCreate``. None is destroyed: the caching allocator may record
+    events on a stream it has served for as long as the process lives."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    with _streams_lock:
+        free = _free_streams.get(idx)
+        if free:
+            return free.pop()
+    torch.cuda.init()
+    cu = ctypes.CDLL("libcuda.so.1")
+    dev, ctx, stream = ctypes.c_int(), ctypes.c_void_p(), ctypes.c_void_p()
+    err = cu.cuDeviceGet(ctypes.byref(dev), idx) \
+        or cu.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev)
+    if not err:
+        # PyTorch holds the primary context too: this call's hold ends here
+        err = cu.cuCtxPushCurrent_v2(ctx)
+        if not err:
+            err = cu.cuStreamCreate(ctypes.byref(stream), CU_STREAM_NON_BLOCKING)
+            popped = ctypes.c_void_p()
+            err = cu.cuCtxPopCurrent_v2(ctypes.byref(popped)) or err
+        err = cu.cuDevicePrimaryCtxRelease_v2(dev) or err
+    if err:
+        raise RuntimeError(f"no stream of its own on cuda:{idx}: CUresult {err}")
+    return torch.cuda.ExternalStream(stream.value, device=torch.device("cuda", idx))
+
+
+def release_stream(stream: torch.cuda.ExternalStream) -> None:
+    """Give back a stream of ``own_stream``'s whose holder is done with it:
+    a later ``own_stream`` on its device returns it. Its queued work is
+    not waited for; a later holder's work runs after it."""
+    with _streams_lock:
+        _free_streams.setdefault(stream.device_index, []).append(stream)
+
+
+def _release_side_streams(state: dict) -> None:
+    for _, side in state.values():
+        release_stream(side)
+
+
 class Pool:
     """A group of graphs' memory: per device one CUDA-graph memory pool and
-    one side stream (the warm-ups' and the captures'), made at first use.
+    one side stream (the warm-ups' and the captures', ``own_stream``'s:
+    no other pool's and no async mapper's), made at first use.
     The graphs of one pool may share memory, so they must replay one at a
     time: graphs that can replay at the same time on two streams belong
     to two pools."""
@@ -226,6 +280,8 @@ class Pool:
         self.name = name
         self._state: dict = {}
         _all_pools.add(self)
+        # the side streams go back to own_stream's free list with the pool
+        weakref.finalize(self, _release_side_streams, self._state).atexit = False
 
     def state(self, device: torch.device):
         """(pool handle, side stream) on the device, made once."""
@@ -233,7 +289,8 @@ class Pool:
         with _lock:
             if idx not in self._state:
                 with torch.cuda.device(idx):
-                    self._state[idx] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream())
+                    self._state[idx] = (torch.cuda.graph_pool_handle(),
+                                        own_stream(torch.device("cuda", idx)))
             return self._state[idx]
 
     def handles(self) -> list:

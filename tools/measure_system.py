@@ -23,6 +23,9 @@ device, synchronous mapping) and prints:
   busy share (device time over unprofiled wall) is an estimate from two
   adjacent windows, not one reading. (The system holds CUDA streams and
   graphs, so it cannot be copied to run one window twice.)
+- on the card, the extraction alone by sub-stage over those frames, the
+  kernels' path against the plain chain (``chip_smoke.extraction_split``:
+  device us and operations a frame, eager).
 
 The last line is one JSON object with every number printed. Times are
 host wall clock around work that ends in a device sync; they vary between
@@ -180,6 +183,19 @@ def main() -> None:
             "busy_share_unprofiled_estimate": dev_ms / plain_wall,
             "top_ops": [{"name": e.key, "calls": e.count,
                          "device_ms": getattr(e, attr) / 1e3} for e in top]}
+
+    if cuda and args.profile_frames:
+        import chip_smoke
+        from multicol_slam_tpu_torch.ops.pyramid import level_sizes
+
+        s = slam.settings
+        sizes = level_sizes(frames.shape[-2], frames.shape[-1], s.n_levels, s.scale_factor)
+        out["extraction_split"] = {}
+        for label, fn in (("kernels", slam.extract), ("plain", slam.extract.plain)):
+            us, ops = chip_smoke.extraction_split(fn, frames[-args.profile_frames:], sizes,
+                                                  args.profile_frames)
+            out["extraction_split"][label] = {"device_us": us, "device_ops": ops}
+            print(f"extraction by sub-stage, {label}: device us {us}; operations {ops}")
 
     for k, v in out["frame_ms"].items():
         print(f"frame ms, {k}: {v}")
