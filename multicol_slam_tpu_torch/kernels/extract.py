@@ -7,10 +7,11 @@ versions.
   every level and camera of the pyramid. Its plain version,
   ``detect_reference``, composes ``fast.fast_with_fallback``,
   ``fast.harris_score`` and ``fast.bucket_maxima`` level by level.
-- ``describe`` (``csrc/orb_describe.cu``, one launch, a CTA a keypoint):
-  the keypoint's raw window on the extractor's canvas, its IC angle, the
-  5x5 blur rounded to integers and the ORB bits, or (no pattern: dBRIEF,
-  mdBRIEF) the angle and the blurred patches. Its plain version,
+- ``describe`` (``csrc/orb_describe.cu``, one launch, a CTA of two warps
+  a keypoint): the keypoint's raw window on the extractor's canvas, its IC
+  angle (the moments in ``brief.moment_sum``'s order), the ORB bits from
+  the 5x5 blur rounded to integers at the sampled points, or (no pattern:
+  dBRIEF, mdBRIEF) the angle and the blurred patches. Its plain version,
   ``describe_reference``, composes ``brief.extract_patches``,
   ``ic_angle_patches``, ``blur_patches_valid`` and ``orb_from_patches``.
 
@@ -75,8 +76,10 @@ def _bind_describe(lib: ctypes.CDLL) -> None:
     lib.orb_describe_launch.restype = i32
     lib.orb_describe_init.argtypes = []
     lib.orb_describe_init.restype = i32
-    lib.orb_describe_attributes.argtypes = [ptr]
+    lib.orb_describe_attributes.argtypes = [i32, ptr]
     lib.orb_describe_attributes.restype = i32
+    lib.orb_describe_rotation.argtypes = [ptr, ctypes.c_longlong, ptr, ptr, ptr]
+    lib.orb_describe_rotation.restype = i32
 
 
 _SOURCES = {"detect": (DETECT_SOURCE, "libfast_detect", _bind_detect),
@@ -121,15 +124,17 @@ def _init_on(dev):
 
 def kernel_attributes(kernel: str, ring: str = "fast_9_16", device=None) -> dict:
     """Registers and local (stack) bytes a thread and threads a CTA of an
-    instance: ``kernel`` "cell_flags" or "tile_maxima" (of ``ring``) or
-    "describe" (a read-only query)."""
+    instance: ``kernel`` "cell_flags" or "tile_maxima" (of ``ring``),
+    "describe" (ORB) or "describe_patches" (the blurred patches; both with
+    the CTAs an SM holds at once) (a read-only query)."""
     dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
         else torch.device(device)
     _init_on(dev)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     with torch.cuda.device(dev):
-        if kernel == "describe":
-            err = load_library("describe").orb_describe_attributes(out)
+        if kernel in ("describe", "describe_patches"):
+            err = load_library("describe").orb_describe_attributes(int(kernel == "describe"),
+                                                                   out)
         elif kernel in ("cell_flags", "tile_maxima"):
             err = load_library("detect").fast_detect_attributes(
                 int(kernel == "tile_maxima"), RING_PIXELS[ring], out)
@@ -137,7 +142,10 @@ def kernel_attributes(kernel: str, ring: str = "fast_9_16", device=None) -> dict
             raise ValueError(f"no extraction kernel {kernel!r}")
     if err != 0:
         raise RuntimeError(f"extraction kernel attribute query failed: cudaError {err}")
-    return dict(zip(("registers", "local_bytes", "threads"), out[:3]))
+    attrs = dict(zip(("registers", "local_bytes", "threads"), out[:3]))
+    if kernel.startswith("describe"):
+        attrs["ctas_per_sm"] = out[4]
+    return attrs
 
 
 def _bump(name: str, n: int):
@@ -230,7 +238,8 @@ def detect(levels, masks, buckets, *, th_hi: float, th_lo: float, cell: int, bor
     C, L = levels[0].shape[0], len(levels)
     sizes = [tuple(img.shape[-2:]) for img in levels]
     T = max(n_tiles(h, w, b) for (h, w), b in zip(sizes, buckets))
-    n_flags = sum(C * n_tiles(h, w, cell) for h, w in sizes)
+    n_flags = sum(C * (n_tiles(h, w, cell) + n_tiles(h, w, b))     # a byte a cell and a tile
+                  for (h, w), b in zip(sizes, buckets))
     vals = torch.empty((C, L, T), dtype=torch.float32, device=dev)
     args = torch.empty((C, L, T), dtype=torch.int32, device=dev)
     flags = torch.empty(n_flags, dtype=torch.uint8, device=dev)
@@ -352,4 +361,26 @@ def describe(levels, yx, level, pattern):
 
 
 describe.launches = 0
+
+
+def rotation(angle):
+    """(cos, sin) of the float32 CUDA tensor ``angle`` as the descriptor
+    kernel takes them for ORB's rotation (its copy of the math library's
+    cosf and sinf below |x| 105615), for the card's test against
+    ``torch.cos`` and ``torch.sin``. Counts nothing: no path calls it."""
+    if not angle.is_cuda or angle.dtype != torch.float32 or not angle.is_contiguous():
+        raise ValueError("rotation: want a contiguous float32 CUDA tensor")
+    cs, sn = torch.empty_like(angle), torch.empty_like(angle)
+    if angle.numel() == 0:
+        return cs, sn
+    _init_on(angle.device)
+    with torch.cuda.device(angle.device):
+        err = load_library("describe").orb_describe_rotation(
+            angle.data_ptr(), angle.numel(), cs.data_ptr(), sn.data_ptr(),
+            torch.cuda.current_stream(angle.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rotation kernel launch failed: cudaError {err}")
+    return cs, sn
+
+
 _WRAPPERS = {"detect": detect, "describe": describe}

@@ -79,16 +79,34 @@ def _ic_weights_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return tuple(torch.from_numpy(a).to(device) for a in _ic_weights())
 
 
+def moment_sum(terms: torch.Tensor) -> torch.Tensor:
+    """The sum of a moment's float32 products (..., R, R) in the port's own
+    order: each product widened to float64, each row summed left to right,
+    the row sums added top to bottom, then rounded once to float32. Every
+    step is an elementwise IEEE operation, so the bits are the same on the
+    CPU and on CUDA whatever PyTorch's reductions do (the descriptor
+    kernel, csrc/orb_describe.cu, sums in this order too)."""
+    t = terms.to(torch.float64)
+    rows = t[..., 0]
+    for i in range(1, t.shape[-1]):
+        rows = rows + t[..., i]
+    total = rows[..., 0]
+    for j in range(1, rows.shape[-1]):
+        total = total + rows[..., j]
+    return total.to(torch.float32)
+
+
 def ic_angle_patches(patches: torch.Tensor) -> torch.Tensor:
     """IC angle atan2(m01, m10) from raw square patches (..., P, P), P >= 31
-    odd, over the central circular 31x31 window."""
+    odd, over the central circular 31x31 window, the moments summed by
+    ``moment_sum``."""
     p = patches.shape[-1]
     r = (p - 1) // 2
     lo, hi = r - HALF_PATCH, r + HALF_PATCH + 1
     wu, wv = _ic_weights_on(patches.device)
     ctr = patches[..., lo:hi, lo:hi]
-    m10 = (ctr * wu).sum((-2, -1))
-    m01 = (ctr * wv).sum((-2, -1))
+    m10 = moment_sum(ctr * wu)
+    m01 = moment_sum(ctr * wv)
     return torch.atan2(m01, m10)
 
 

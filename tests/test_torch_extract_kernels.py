@@ -13,21 +13,22 @@ On the CPU:
   - the wrappers' argument checks;
   - ``detect_reference`` against the bucket maxima written out as the
     plain selection takes them, and the kernels' own arithmetic mirrored
-    in numpy against the functions they stand for: the rings' arc minima
-    by doubling, Harris at one pixel, the tile's first maximum through the
-    CTA's reduction, the blur's order, the moments' summation order (each
-    product added once) and the tables the sources hold.
+    in numpy against the functions they stand for: the segment test as
+    bit masks (every ring pattern; differences within a few ulps of the
+    thresholds), the rings' arc minima by doubling, the divisions by
+    multiply-shift and the walks over a tile, the survivors' lists and
+    Harris over them, the tile's first maximum through the CTA's
+    reduction, the blur's order at the sampled points, the moments'
+    order (each product added once, a float64 mirror bit for bit, the
+    JAX package's angle within 1e-5 rad) and the tables the sources hold.
 
 On the card (``cuda`` marker; skips without one): the kernels against
 their plain versions at each ring and threshold pair, with Harris on and
 off, on rendered frames and on noise (negative Harris responses), on
 plateaus, fully masked levels, all-zero tiles, keypoints at the canvas
-clamp, eight cameras, and inside a CUDA graph. The bars: the bucket
-maxima and indices, keypoints, levels, responses and validity identical;
-angles identical at level 0 and within 1e-5 rad above it; descriptor
-bits identical where the angle is. Angles identical at every level too,
-while the descriptor's moment sums keep the order of the PyTorch version
-named in MOMENT_ORDER_TORCH (test_angles_bit_equal_at_every_level).
+clamp, eight cameras, and inside a CUDA graph. The bar: every output
+identical, the bucket maxima and indices, keypoints, levels, responses,
+validity, the angles at every level and the descriptor bits.
 
 This file imports JAX only inside the tests that compare with it, so the
 card's tests run where JAX is not installed:
@@ -52,7 +53,8 @@ from multicol_slam_tpu_torch.utils import config_io, synthetic
 
 CSRC = os.path.dirname(ek.DETECT_SOURCE)
 RINGS = ("fast_9_16", "agast_7_12", "agast_5_8")
-MAX_ANGLE_DIFF = 1e-5
+# launch 2's CTA width in csrc/fast_detect.cu, which the mirrors below follow
+THREADS = int(re.search(r"#define THREADS (\d+)", open(ek.DETECT_SOURCE).read()).group(1))
 
 
 # -- the rig, frames and extractors, at half width for the CPU ------------------------
@@ -290,6 +292,239 @@ def test_arc_doubling_equals_the_segment_test(mask):
         assert _best_arc_doubling(v, arc) == want
 
 
+def _has_run(m, n, arc):
+    """has_run of csrc/fast_detect.cu on an array of n-bit ring masks: the
+    ring twice, runs doubled by shift and AND, then joined to arc."""
+    x = m.astype(np.uint64) | (m.astype(np.uint64) << np.uint64(n))
+    r, w = x, 1
+    while 2 * w <= arc:
+        r = r & (r >> np.uint64(w))
+        w *= 2
+    if arc > w:
+        r = r & (r >> np.uint64(arc - w))
+    return (r & np.uint64((1 << n) - 1)) != 0
+
+
+@pytest.mark.parametrize("mask", RINGS)
+def test_bit_mask_run_test_on_every_ring_pattern(mask):
+    """For all 2^N bright patterns, a run of ARC set bits exactly where
+    the plain version's arc minima of the 0/1 pattern reach 1, in either
+    bit order (ring_bits shifts pixel 0 up to the highest bit)."""
+    circle, arc, _ = fast.DETECTOR_MASKS[mask]
+    n = len(circle)
+    m = np.arange(2 ** n, dtype=np.int64)
+    bits = torch.from_numpy(((m[:, None] >> np.arange(n)) & 1).astype(np.float32))
+    best = torch.stack(fast._ring_min_arc([bits[:, k] for k in range(n)], arc)).amax(0)
+    assert np.array_equal(_has_run(m, n, arc), (best >= 1).numpy())
+    reversed_ = (((m[:, None] >> np.arange(n)) & 1) << np.arange(n)[::-1]).sum(1)
+    assert np.array_equal(_has_run(reversed_, n, arc), _has_run(m, n, arc))   # ring_bits' order
+
+
+def _diff_threshold(th):
+    """diff_threshold of csrc/fast_detect.cu in float32: the least t with
+    fl(t - 1) >= th."""
+    f = np.float32
+    th, one = f(th), f(1)
+    x = f(th + one)
+    while f(np.nextafter(x, f(-np.inf)) - one) >= th:
+        x = np.nextafter(x, f(-np.inf))
+    while not f(x - one) >= th:
+        x = np.nextafter(x, f(np.inf))
+    return x
+
+
+def _ring_score(d, t, th, arc):
+    """ring_score of csrc/fast_detect.cu on ring differences d (B, N)
+    float32: the bit masks against t, then the arc minima of the polarity
+    that passes (of both where both do, which t <= 0 allows); 0 where
+    neither does."""
+    n = d.shape[1]
+    weights = (1 << np.arange(n)[::-1]).astype(np.int64)      # pixel 0 the highest bit
+    bright = _has_run(((d >= t) * weights).sum(1), n, arc)
+    dark = _has_run(((d <= -t) * weights).sum(1), n, arc)
+    if t > 0:
+        assert not (bright & dark).any()          # 2 arc > n: the arcs would overlap
+    out = np.zeros(len(d), np.float32)
+    for i in np.flatnonzero(bright | dark):
+        best = -np.inf
+        for on, v in ((bright[i], d[i]), (dark[i], -d[i])):
+            if on:
+                best = max(best, max(min(v[(k + j) % n] for j in range(arc)) for k in range(n)))
+        score = np.float32(np.float32(best) - np.float32(1))
+        out[i] = score if score >= th else 0
+    return out, bright | dark
+
+
+@pytest.mark.parametrize("mask", RINGS)
+def test_bit_mask_test_decides_as_the_score_threshold(mask):
+    """Ring differences placed within a few ulps of the thresholds' t (and
+    -t) and non-integer centres: the bit test passes exactly where
+    fast.fast_score's score >= th, and ring_score gives fast_score's s_lo
+    bit for bit. This is the monotone-rounding argument, checked."""
+    circle, arc, r = fast.DETECTOR_MASKS[mask]
+    n, f = len(circle), np.float32
+    rng = np.random.default_rng(100 + n)
+    B = 3000
+    for th in (5.0, 20.0, 7.25, float(np.nextafter(f(0), f(1))), -3.0):
+        t = _diff_threshold(th)
+        assert f(t - f(1)) >= f(th) and f(np.nextafter(t, f(-np.inf)) - f(1)) < f(th)
+        c = np.where(rng.random(B) < 0.5, rng.uniform(0, 4, B), rng.uniform(0, 255, B)).astype(f)
+        near = (t.view(np.int32) + rng.integers(-4, 5, (B, n))).astype(np.int32).view(f)
+        sign = np.where(rng.random((B, 1)) < 0.5, f(1), f(-1))
+        d_want = np.where(rng.random((B, n)) < 0.15, rng.uniform(-30, 30, (B, n)).astype(f),
+                          sign * near)
+        start = rng.integers(0, n, B)             # a run of arc - 1 .. arc + 1 near t
+        length = rng.integers(arc - 1, arc + 2, B)
+        for i in range(B):
+            for j in range(length[i], n):
+                d_want[i, (start[i] + j) % n] = rng.uniform(-abs(t), abs(t))
+        img = (rng.random((B, 2 * r + 1, 2 * r + 1)) * 255).astype(f)
+        img[:, r, r] = c
+        for k, (dy, dx) in enumerate(circle):
+            img[:, r + dy, r + dx] = c + d_want[:, k]
+        d = np.stack([img[:, r + dy, r + dx] - img[:, r, r] for dy, dx in circle], 1)
+        score = fast.fast_score(torch.from_numpy(img), -np.inf, mask).numpy()[:, r, r]
+        s_lo = fast.fast_score(torch.from_numpy(img), th, mask).numpy()[:, r, r]
+        got, passed = _ring_score(d, t, f(th), arc)
+        assert np.array_equal(passed, score >= f(th)), th
+        assert np.array_equal(got.view(np.int32), s_lo.view(np.int32)), th
+        if th > 0:                                             # both sides exercised
+            assert min(passed.sum(), (~passed).sum()) >= 5, th
+
+
+def _magic(d):
+    return (1 << 32) // d + 1
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 10, 16, 27, 39, 47, 66, 74])
+def test_walk_and_fastdiv_equal_division(m):
+    """fastdiv(x, magic(d)) == x // d over the dividends the kernels
+    divide, and a thread's Walk over an m-wide area (at both launches' CTA
+    widths) visits divmod(threadIdx + width it, m), as the division would."""
+    fastdiv = lambda x, mg: (x * mg) >> 32
+    for d in (m, 30, 64, 416, 65536):
+        x = np.arange(0, min(2 ** 32 // d, 70000), dtype=np.uint64)
+        assert np.array_equal(fastdiv(x, np.uint64(_magic(d))), x // np.uint64(d)), d
+    for nt in (THREADS, 256):
+        for tid in range(nt):
+            r = fastdiv(tid, _magic(m))
+            c, dr = tid - r * m, fastdiv(nt, _magic(m))
+            dc = nt - dr * m
+            for it in range(-(-m * m // nt) + 1):
+                assert (r, c) == divmod(tid + nt * it, m), (tid, it)
+                r, c = r + dr, c + dc
+                if c >= m:
+                    c, r = c - m, r + 1
+
+
+def _warp_lists(survived):
+    """tile_maxima's survivor lists: pixel i = tid + THREADS it of a
+    tile's raster order; each warp a ballot an iteration, its survivors
+    written at its count so far + the lanes below them."""
+    warps = THREADS // 32
+    iters = -(-len(survived) // THREADS)
+    flags = np.zeros(iters * THREADS, bool)
+    flags[:len(survived)] = survived
+    ballots = flags.reshape(iters, warps, 32)
+    lists = []
+    for warp in range(warps):
+        own, n = {}, 0
+        for it in range(iters):
+            for lane in range(32):
+                if ballots[it, warp, lane]:
+                    own[n + int(ballots[it, warp, :lane].sum())] = it * THREADS + warp * 32 + lane
+            n += int(ballots[it, warp].sum())
+        lists.append([own[k] for k in range(n)])
+    return lists
+
+
+def _harris_lanes(win, n, i, b, ty0, tx0, H, W):
+    """Harris over the list in csrc/fast_detect.cu at survivor i of the
+    tile at (ty0, tx0), bucket b, from the window (n x n, 5 pixels around
+    the tile, clamped): lane j sums row j's seven columns from the left,
+    the first lane the seven row sums from the top; + 1e-6."""
+    f = np.float32
+    dyt, dxt = divmod(i, b)
+    y, x = ty0 + dyt, tx0 + dxt
+    rows = []
+    for j in range(7):
+        ha = hb = hc = f(0)
+        if 0 <= y + j - 3 < H:
+            for c in range(7):
+                ta = tb = tc = f(0)
+                if 0 <= x + c - 3 < W:
+                    q = (dyt + 5 + j - 3) * n + dxt + 5 - 3 + c
+                    gx = (win[q + 2] - win[q - 2]) * f(0.5)
+                    gy = (win[q - 2 * n] - win[q + 2 * n]) * f(-0.5)
+                    ta, tb, tc = gx * gx, gx * gy, gy * gy
+                ha, hb, hc = ha + ta, hb + tb, hc + tc
+        rows.append((ha, hb, hc))
+    a = bb = c = f(0)
+    for ha, hb, hc in rows:
+        a, bb, c = a + ha, bb + hb, c + hc
+    s = a + c
+    return (a * c - bb * bb - f(ek.HARRIS_K) * (s * s)) * f(ek.HARRIS_SCALE2) + f(1e-6)
+
+
+def test_harris_over_the_compacted_survivors():
+    """The warps' lists hold the tile's survivors once each, each list in
+    raster order, and Harris taken over them lane by lane equals the dense response
+    (+ 1e-6) at those pixels, tiles at the image's corners and edges
+    included (the clamped differences and the zero padding)."""
+    rng = np.random.default_rng(23)
+    H, W = 70, 90
+    img = (rng.random((H, W)) * 255).astype(np.float32)
+    dense = (fast.harris_score(torch.from_numpy(img)) + 1e-6).numpy()
+    for b in (8, 19, 37, 64):
+        n = b + 10
+        for ty0, tx0 in ((0, 0), (0, W - b), (H - b, 0), (H - b - 3, W - b - 5), (11, 23)):
+            yy = np.clip(np.arange(ty0 - 5, ty0 - 5 + n), 0, H - 1)
+            xx = np.clip(np.arange(tx0 - 5, tx0 - 5 + n), 0, W - 1)
+            win = img[yy][:, xx].reshape(-1)
+            survived = rng.random(b * b) < (0.05 if b > 20 else 0.3)
+            survived[-1] = True
+            lists = _warp_lists(survived)
+            assert all(own == sorted(own) for own in lists)        # each in raster order
+            assert sorted(i for own in lists for i in own) == list(np.flatnonzero(survived))
+            for i in (i for own in lists for i in own):
+                y, x = ty0 + i // b, tx0 + i % b
+                if y < H and x < W:
+                    assert _harris_lanes(win, n, i, b, ty0, tx0, H, W) == dense[y, x], (b, i)
+
+
+def _point_blur(raw, Y, X, divide: bool):
+    """blurred() of csrc/orb_describe.cu at (Y, X) of the 49 x 49 patch:
+    five columns from the left at each of rows Y..Y + 4, the rows from the
+    top, each from 0, then / 25 (the CPU's) or times the reciprocal (the
+    card's), rint."""
+    f = np.float32
+    v = f(0)
+    for i in range(5):
+        h = f(0)
+        for j in range(5):
+            h = h + raw[Y + i, X + j]
+        v = v + h
+    return np.rint(v / f(25) if divide else v * (f(1) / f(25)))
+
+
+def test_blur_at_the_sampled_points():
+    """The blur taken where ORB samples it equals the whole blurred patch
+    there, at every rotated pattern point of random angles."""
+    rng = np.random.default_rng(29)
+    pattern = torch.from_numpy(brief.make_pattern(256))
+    for integer in (True, False):
+        raw = rng.random((6, 53, 53)) * 255
+        raw = (np.round(raw) if integer else raw).astype(np.float32)
+        whole = torch.round(brief.blur_patches_valid(torch.from_numpy(raw))).numpy()
+        angle = torch.from_numpy(rng.uniform(-np.pi, np.pi, 6).astype(np.float32))
+        off = brief.rotate_pattern_int(pattern, angle).numpy().clip(-23, 23) + 24
+        for k in range(6):
+            for Y, X in off[k]:
+                assert _point_blur(raw[k], Y, X, divide=True) == whole[k, Y, X]
+                if integer:
+                    assert _point_blur(raw[k], Y, X, divide=False) == whole[k, Y, X]
+
+
 def _harris_at(img, y, x):
     """harris_at of csrc/fast_detect.cu in float32, in its order."""
     f = np.float32
@@ -323,14 +558,22 @@ def test_harris_at_one_pixel_equals_the_dense_response():
         assert _harris_at(img, y, x) == dense[y, x], (y, x)
 
 
-def _tile_first_max(vals, threads=256):
+def _tile_first_max(vals, lists=(), threads=THREADS):
     """tile_maxima's reduction: each thread over its pixels in raster
-    order, the warp's shuffle-down tree, the warps in order, (value, lower
-    index) first."""
+    order but the survivors, then each survivor in the lane that finished
+    its Harris (warp w's list ``lists[w]``, position s: lane 7 (s % 4) of
+    warp w), the warp's shuffle-down tree, the warps in order, (value,
+    lower index) first."""
     better = lambda v, i, w, j: v > w or (v == w and i < j)
     best = [(-np.inf, 2 ** 31 - 1)] * threads
+    listed = {i for own in lists for i in own}
     for t in range(threads):
         for i in range(t, len(vals), threads):
+            if i not in listed and better(vals[i], i, *best[t]):
+                best[t] = (vals[i], i)
+    for w, own in enumerate(lists):
+        for sv, i in enumerate(own):
+            t = 32 * w + 7 * (sv % 4)
             if better(vals[i], i, *best[t]):
                 best[t] = (vals[i], i)
     for w in range(threads // 32):
@@ -351,9 +594,11 @@ def test_tile_reduction_takes_the_first_maximum():
     for b in (8, 19, 37, 64):
         for hi in (1, 3, 50):
             vals = rng.integers(-2, hi, b * b).astype(np.float32)
-            v, i = _tile_first_max(vals)
             t = torch.from_numpy(vals).max(0)
-            assert (v, i) == (float(t.values), int(t.indices)), (b, hi)
+            want = (float(t.values), int(t.indices))
+            assert _tile_first_max(vals) == want, (b, hi)
+            lists = _warp_lists(rng.random(b * b) < 0.2)
+            assert _tile_first_max(vals, lists) == want, (b, hi)
 
 
 def _blur_rounded(raw, divide: bool):
@@ -389,38 +634,71 @@ def test_blur_order_and_scale():
             assert np.array_equal(_blur_rounded(raw, divide=False), want)
 
 
-def _moment_order(row):
-    """The element order of moment_sum in csrc/orb_describe.cu for output
-    row ``row``: per lane, its accumulators' elements in order."""
-    n = 961
-    shift = (row * n) % 4
-    lanes = [[[] for _ in range(4)] for _ in range(32)]
-    base, end = 0, n
-    if shift:
-        for lane in range(shift, 4):
-            lanes[lane][0].append(lane - shift)
-        base, end = 4 - shift, n + shift - 4
-    for lane in range(32):
-        idx = lane
-        while idx * 4 + 3 < end:
-            for i in range(4):
-                lanes[lane][i].append(base + idx * 4 + i)
-            idx += 32
-        if end - end % 4 + lane < end:
-            lanes[lane][0].append(base + end - end % 4 + lane)
-    return lanes
+def _moment_order():
+    """The order in which csrc/orb_describe.cu's moment() adds a moment's
+    31 x 31 products (brief.moment_sum's): lane v + 15 sums row v from the
+    left, lane 0 adds the row sums from the top. Returns the flat indices
+    of the products, row by row, in the order each is added."""
+    rows = [[v * 31 + u for u in range(31)] for v in range(31)]   # lane v: its row's order
+    return [e for lane in range(31) for e in rows[lane]]
 
 
 def test_moment_order_adds_every_product_once():
-    for row in range(8):
-        got = sorted(e for lane in _moment_order(row) for acc in lane for e in acc)
-        assert got == list(range(961)), row
+    order = _moment_order()
+    assert sorted(order) == list(range(961))
+    assert order == list(range(961))           # rows from the top, each from the left
+
+
+def _moment_mirror(terms):
+    """moment() of csrc/orb_describe.cu in numpy: each float32 product
+    widened to float64, a row's sum from the left, the rows from the top,
+    rounded once to float32."""
+    t = terms.astype(np.float64).reshape(terms.shape[:-2] + (-1,))
+    order = _moment_order()
+    out = np.zeros(terms.shape[:-2], np.float32)
+    for idx in np.ndindex(*terms.shape[:-2]):
+        rows = []
+        for v in range(31):
+            s = t[idx][order[31 * v]]
+            for e in order[31 * v + 1:31 * v + 31]:
+                s = s + t[idx][e]
+            rows.append(s)
+        total = rows[0]
+        for r in rows[1:]:
+            total = total + r
+        out[idx] = np.float32(total)
+    return out
+
+
+def test_moment_sum_matches_a_float64_mirror_and_jax():
+    """brief.moment_sum equals the kernel's order mirrored in numpy bit for
+    bit on non-integer windows (the levels above 0), and the port's angle
+    stays within the JAX package's 1e-5 rad."""
+    import jax
+    import jax.numpy as jnp
+
+    import _torchutil as U
+    from multicol_slam_tpu.ops import brief as jbrief
+
+    rng = np.random.default_rng(17)
+    raw = (rng.random((40, 53, 53)) * 255).astype(np.float32)
+    raw[:8] = np.round(raw[:8] * 4) / 4                 # a few coarser ones
+    wu, wv = brief._ic_weights()
+    ctr = raw[:, 11:42, 11:42]
+    for w in (wu, wv):
+        terms = ctr * w
+        got = brief.moment_sum(torch.from_numpy(terms)).numpy()
+        assert np.array_equal(got.view(np.int32), _moment_mirror(terms).view(np.int32))
+    angle = brief.ic_angle_patches(torch.from_numpy(raw)).numpy()
+    with U.f32():
+        want = np.asarray(jax.jit(jbrief.ic_angle_patches)(jnp.asarray(raw)))
+    assert float(np.abs(angle - want).max()) <= 1e-5
 
 
 def test_level0_moments_are_exact_in_any_order():
     """At level 0 the window holds integers: every partial sum of the
     moments stays under 2^24, so the kernel's order gives the plain
-    version's angle bit for bit."""
+    version's angle bit for bit, as PyTorch's float32 sum gives it too."""
     rng = np.random.default_rng(13)
     raw = torch.from_numpy(rng.integers(0, 256, (64, 53, 53)).astype(np.float32))
     wu, wv = brief._ic_weights()
@@ -434,6 +712,7 @@ def test_level0_moments_are_exact_in_any_order():
             s_fwd = s_fwd + fwd[:, e]
         assert np.array_equal(s_fwd, (torch.from_numpy(ctr) * torch.from_numpy(w)).sum(
             (-2, -1)).numpy())
+        assert np.array_equal(s_fwd, brief.moment_sum(torch.from_numpy(terms)).numpy())
 
 
 # -- on the card ---------------------------------------------------------------------------
@@ -446,16 +725,10 @@ def dev():
 
 
 def _hold(plain, kernel):
-    """The kernel path's features against the plain chain's on the card."""
-    for name in ("xy", "level", "response", "valid", "ray"):
+    """The kernel path's features against the plain chain's on the card:
+    every output identical."""
+    for name in plain._fields:
         assert torch.equal(getattr(plain, name), getattr(kernel, name)), name
-    same = plain.angle == kernel.angle
-    assert bool(same[plain.level == 0].all())
-    assert float((plain.angle - kernel.angle).abs().max()) <= MAX_ANGLE_DIFF
-    for name in ("desc", "desc_mask"):
-        a, b = unpack_bits_u32(getattr(plain, name)), unpack_bits_u32(getattr(kernel, name))
-        assert torch.equal(a[same], b[same]), name
-        assert float((a != b).float().mean()) <= 1e-4, name
 
 
 def _detect_both(levels, masks, buckets, **kw):
@@ -480,30 +753,38 @@ def test_kernels_against_plain_on_frames(dev, mask, th, harris):
     assert (ek.detect.launches - n0[0], ek.describe.launches - n0[1]) == (4, 2)
 
 
-# csrc/orb_describe.cu's moment_sum copies the order in which PyTorch's CUDA
-# sum reduces the moments' products, as it was in this version
-MOMENT_ORDER_TORCH = "2.11.0+cu128"
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", RINGS)
 def test_angles_bit_equal_at_every_level(dev, mask):
     """Above level 0 the moments' sums depend on their order: the kernel
-    gives the plain version's angles bit for bit only while moment_sum's
-    order is PyTorch's own."""
+    and the plain version both sum in brief.moment_sum's order (float64
+    elementwise adds), so the angles are equal bit for bit at every level,
+    whatever PyTorch's own reductions do."""
     rig = _rig(1.0)
     tx = _extractor(rig, detector_mask=mask, use_harris=True)
     for img in _frames(rig, 2, dev):
         plain, kernel = tx.plain(img), tx(img)
         upper = plain.level > 0
         assert bool(upper.any())
-        apart = int((plain.angle != kernel.angle)[upper].sum())
-        assert not apart, (
-            f"{apart} of {int(upper.sum())} angles above level 0 differ from the plain "
-            f"version's (at most {float((plain.angle - kernel.angle).abs().max()):.3g} rad): "
-            f"moment_sum in csrc/orb_describe.cu sums in the order of PyTorch "
-            f"{MOMENT_ORDER_TORCH}'s CUDA reduction, and this is PyTorch {torch.__version__}; "
-            f"match the new order or hold the angle to its 1e-5 bar alone")
+        apart = int((plain.angle != kernel.angle).sum())
+        assert not apart, (f"{apart} angles differ from the plain version's (at most "
+                           f"{float((plain.angle - kernel.angle).abs().max()):.3g} rad)")
+
+
+@pytest.mark.cuda
+def test_rotation_equals_torch_cos_and_sin_at_every_angle(dev):
+    """The descriptor's copy of the math library's cosf and sinf (its fast
+    path, no local memory) equals torch.cos and torch.sin bit for bit at
+    every float32 in [-pi, pi], the IC angle's range."""
+    top = int(np.array(np.pi, np.float32).view(np.int32))
+    step = 1 << 26
+    for start in range(0, top + 1, step):
+        bits = torch.arange(start, min(start + step, top + 1), dtype=torch.int32, device=dev)
+        for sign in (0, -2 ** 31):
+            a = (bits | sign).view(torch.float32)
+            cs, sn = ek.rotation(a)
+            assert torch.equal(cs.view(torch.int32), torch.cos(a).view(torch.int32)), start
+            assert torch.equal(sn.view(torch.int32), torch.sin(a).view(torch.int32)), start
 
 
 @pytest.mark.cuda
@@ -549,10 +830,7 @@ def test_describe_at_the_clamp_and_across_levels(dev):
     pattern = torch.from_numpy(brief.make_pattern(256)).to(dev)
     a1, d1 = ek.describe(pyr, yx, level, pattern)
     a0, d0 = ek.describe_reference(pyr, yx, level, pattern)
-    same = a0 == a1
-    assert bool(same[level == 0].all())
-    assert float((a0 - a1).abs().max()) <= MAX_ANGLE_DIFF
-    assert torch.equal(d0[same], d1[same])
+    assert torch.equal(a0, a1) and torch.equal(d0, d1)
     b1 = ek.describe(pyr, yx, level, None)[1]
     b0 = ek.describe_reference(pyr, yx, level, None)[1]
     assert torch.equal(b0, b1)
