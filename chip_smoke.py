@@ -138,8 +138,9 @@ Phases, each fatal on failure:
      cm, at least 0.6x the keyframes and 0.5x the points, each pose within
      0.15 m, at least a third of the steady frames with no dispatch),
      entry A launched inside the chunk scan at the motion and local-map
-     sites, each equal to plain; ms a frame chunked against per frame and
-     the dispatches a frame are printed; (c) under async mapping, reset()
+     sites, each equal to plain, and no chunk's scan body captured after
+     the bootstrap's capture-ahead; ms a frame chunked against per frame
+     and the dispatches a frame are printed; (c) under async mapping, reset()
      called while a keyframe's pass runs: the pass ends on the map as it
      was, then the queue, the map, the mapper and the loop closer are
      empty, and the system initializes again within 20 frames; (d)
@@ -174,8 +175,13 @@ Phases, each fatal on failure:
      projected through that rig, at least 4x closer to the rig itself; the
      extrinsic and intrinsics Jacobians on the card against the CPU's;
      then refine_intrinsics with every principal point off by (+1.5,
-     -1.0) px, each at least 3x closer; every output on the card, ms per
-     call printed; (c) tests/test_dynamic_scene.py's run on
+     -1.0) px, each at least 3x closer; every output on the card. Each of
+     these calls is the entry's CUDA graph (optimizer.CALIBRATION's pool),
+     held bit for bit to two eager calls of its plain function (.fn),
+     which must equal each other (the sums in a fixed order), the graph's
+     first call (cold: warm-up and capture) and a replay; ms cold and warm,
+     eager and graphed, printed; with one keyframe fixed the four calls'
+     agreement is printed, not held; (c) tests/test_dynamic_scene.py's run on
      the in-repo rig at full width: MultiColSLAM (loop closing on) at
      SlamSettings(n_features=300, n_levels=4, fps=8.0) over
      bench_trajectory(48, radius=0.7) with that test's three textured
@@ -201,9 +207,14 @@ Phases, each fatal on failure:
      iterations): the sharded BA at D = 8 within 2% of the single path's
      robust cost, both below 0.8 of the start; the per-iteration costs of
      make_sharded_ba_step and the single path, each step taken or not; ms
-     per iteration of the single path and of D = 1, 2, 4, 8 on the one
-     card (the cost of sharding: the shards share one card), the peak
-     memory of the D = 8 run; every output on the card.
+     per iteration of the single path (graphed as the system's global BA
+     is, and eager) and of D = 1, 2, 4, 8 on the one card (the cost of
+     sharding: the shards share one card), the peak memory of the D = 8
+     run; every output on the card. The sharded BA runs as CUDA graphs
+     (parallel/ba_sharding.py: each shard's linearization, the root's
+     reduction, accept / reject and solve; the shared pool): in (b) and
+     (c) every graphed run is held bit for bit to its eager self (the
+     same units as plain functions, EagerShards), float32 and float64.
  14. the compiled main path. On the card the tracker runs its WORKING
      frame (working_track_step) and the chunk scan's body
      (working_scan_body) as CUDA graphs (utils/graphs.py): one capture
@@ -301,7 +312,10 @@ Phases, each fatal on failure:
      the relocalization against the eager tree's (printed), each unit's ms
      eager and graphed, captures and replays by unit and phase, what the
      capture-ahead took and what captured after it; GP3P and the pose LM
-     capture nothing on phase 7's relocalized frames.
+     capture nothing on phase 7's relocalized frames, and over phase 6 the
+     WORKING step and the scan body, captured ahead, capture nothing after
+     the bootstrap (phase 6 prints the bootstrap and first fused frames'
+     ms).
  18. the pose LM kernel (csrc/pose_lm.cu: both LM rounds, the gate and
      the final count in one launch of a thread-block cluster, each round
      stopping on the device) at
@@ -545,8 +559,8 @@ SELFCAL_OFFSET = {1: [0.002, -0.002, 0.002, 0.004, -0.004, 0.004],
 SELFCAL_ITERS, INTRINSICS_ITERS = 10, 8
 # the keyframes held fixed beside camera 0: with one, the whole map and the
 # extrinsics' translations can scale about camera 0's first centre at no
-# cost, only lambda holds the LM along that free scale, and where it ends
-# changes with the card's unordered sums (phase 12 (b) prints that run);
+# cost, and only lambda holds the LM along that free scale (phase 12 (b)
+# prints that run; with the sums in a fixed order its calls agree);
 # tests/test_optimizer.py fixes two
 SELFCAL_FIXED_KFS = 2
 SELFCAL_MIN_GAIN, INTRINSICS_MIN_GAIN = 4.0, 3.0
@@ -605,6 +619,11 @@ TRACKER_RECORDS_PER_PHASE = 3
 TRACKER_RECORDS: list = []
 TRACKER_PHASES: dict = {}     # phase -> its TrackerUnits (calls and captures by unit)
 PATH_MS: dict = {}            # phase 6's (frame path, ms) and phase 7's _relocalize ms
+# the units the capture-ahead missed: (frame, unit, captures) noted by the
+# tracker after it, by phase (6, 11 (b)); none may be the WORKING step or
+# the scan body
+LATE_CAPTURES: dict = {}
+AHEAD_UNITS = ("_working_step", "_scan_body")
 # the medians (ms) of the tree before the tracker's units were graphed, on
 # an NVIDIA H100 80GB HBM3 at 700.00 W: two runs of tools/path_study.py
 # (PERF.md section 6)
@@ -1577,6 +1596,13 @@ def system_phase(dev, knn, card):
     tr = slam.tracker
     m = slam.map
     PATH_MS["phase 6"] = list(zip(tr.frame_path, times))
+    LATE_CAPTURES["phase 6"] = list(tr.late_captures)
+    fused = tr.frame_path.index("fused") if "fused" in tr.frame_path else None
+    if init_frame is not None and fused is not None:
+        print(f"system: the bootstrap frame {init_frame} {times[init_frame]:.3f} ms on the "
+              f"host clock (its capture-ahead {tr.captured_ahead}), the first fused frame "
+              f"{fused} {times[fused]:.3f} ms; captured after the capture-ahead (frame, "
+              f"unit, captures) {tr.late_captures} ({card})")
     print(f"system: init at frame {init_frame}, {m.n_keyframes()} keyframes "
           f"({len(slam.mapping_ms)} mapping passes), {m.n_points()} points, "
           f"frame paths {dict(Counter(tr.frame_path))}")
@@ -2621,6 +2647,13 @@ def chunked_run(knn, card, frames, gt, ref):
         fail(f"chunked: {steady.count(0)} of {len(steady)} steady frames without a dispatch")
     if not scans or not all(isinstance(body, graphs.jit) for _, body, _ in scans):
         fail("chunked: the tracker's chunks did not run the graphed scan body")
+    LATE_CAPTURES["phase 11 (b)"] = list(tr.late_captures)
+    print(f"chunked: the capture-ahead captured {tr.captured_ahead}; captured after it "
+          f"(frame, unit, captures) {tr.late_captures}; chunk scans that captured "
+          f"{sum(cap for _, _, cap in tr.chunk_scans)} of {len(tr.chunk_scans)}")
+    if any(unit == "_scan_body" for _, unit, _ in tr.late_captures):
+        fail(f"chunked: the scan body captured after the capture-ahead, at chunks of "
+             f"{CHUNK}: {tr.late_captures}")
     return check_launches(knn, spy, CHUNK_SITES, card, tag="_batch"), scans
 
 
@@ -2908,40 +2941,65 @@ def selfcal_phase(dev, card, slam, ring):
           f"{problem.pt_obs.shape[1]} a point at most; cameras 1-7 start "
           f"{dist(mc_pert, mc_true)} from the rig the map was built with")
 
-    def selfcal(rig, prob, label, warm=False):
-        out, ms = timed(lambda: opt.self_calibrating_bundle_adjustment(
-            rig, mt0, X0, prob, iters=SELFCAL_ITERS))
-        msg = f"ms cold {ms:.3f}"
-        if warm:
-            msg += f", warm {timed(lambda: opt.self_calibrating_bundle_adjustment(rig, mt0, X0, prob, iters=SELFCAL_ITERS))[1]:.3f}"
-        if any(t.device != dev for t in out):
-            fail(f"selfcal: an output of the self-calibrating BA ({label}) lies off the card")
-        cost0 = robust_cost(opt.self_calibrating_bundle_adjustment(
+    def held(label, fn, args, kw, hold=True, eager=None, graph=None):
+        """fn's graph (the entry itself, on the card) against its eager
+        self (``.fn``, or ``eager``): two eager calls, the graph's first
+        call of this key (cold: its warm-up and capture, or a replay of a
+        key held) and a replay, each identical to the first eager call,
+        with ``hold`` fatal. Prints ms a call; returns the replay's
+        outputs."""
+        eager = eager or fn.fn
+        graph = graph or fn.graph
+        (e1, e_cold), (e2, e_warm) = (timed(lambda: eager(*args, **kw)) for _ in range(2))
+        captures = graph.captures
+        (g1, g_cold), (g2, g_warm) = (timed(lambda: fn(*args, **kw)) for _ in range(2))
+        same = [identical(o, e1) for o in (e2, g1, g2)]
+        print(f"selfcal: {label}: ms eager cold {e_cold:.3f}, warm {e_warm:.3f}; graphed cold "
+              f"{g_cold:.3f} ({graph.captures - captures} capture), warm {g_warm:.3f}; the "
+              f"second eager call, the graph's first call and its replay identical to the "
+              f"first eager call: {same} ({card})")
+        if hold and not all(same):
+            fail(f"selfcal: {label}: a replay or a second eager call differs from the first "
+                 f"eager call ({same})")
+        if any(t.device != dev for t in tensor_leaves(g2)):
+            fail(f"selfcal: an output of {label} lies off the card")
+        return g2
+
+    def selfcal(rig, prob, label, hold=True):
+        out = held(label, opt.self_calibrating_bundle_adjustment, (rig, mt0, X0, prob),
+                   dict(iters=SELFCAL_ITERS), hold)
+        cost0 = robust_cost(opt.self_calibrating_bundle_adjustment.fn(
             rig, mt0, X0, prob, iters=0)[3], prob.obs)
-        print(f"selfcal: {label}, {SELFCAL_ITERS} iterations, {msg}; robust cost {cost0:.3f} "
+        print(f"selfcal: {label}, {SELFCAL_ITERS} iterations; robust cost {cost0:.3f} "
               f"-> {robust_cost(out[3], prob.obs):.3f} ({card})")
         return out, cost0
 
-    # one keyframe fixed, as a local BA would: printed, not held
+    # one keyframe fixed, as a local BA would: printed, not held (whether
+    # its calls end at one calibration is the list of the line printed)
     p1 = problem_with(1)[0]
-    (_, _, mc1, _), _ = selfcal(rig_pert, p1, "the first keyframe and camera 0 fixed")
+    (_, _, mc1, _), _ = selfcal(rig_pert, p1, "the first keyframe and camera 0 fixed",
+                                hold=False)
     print(f"selfcal: with one keyframe fixed the cameras end {dist(mc1, mc_true)} from the "
           f"rig the map was built with (not held: the scale is free)")
 
     # the map as tracked, from the perturbed rig and from the rig it was built with
-    (mt, X, mc, chi2), cost0 = selfcal(rig_pert, problem, "perturbed rig", warm=True)
+    (mt, X, mc, chi2), cost0 = selfcal(rig_pert, problem, "perturbed rig")
     (_, _, mc_ref, _), _ = selfcal(ring, problem, "the rig the map was built with")
-    (r_mt, r_X, r_chi2), ms_r = timed(lambda: opt.bundle_adjustment(
-        rig_pert, mt0, X0, problem, iters=SELFCAL_ITERS, free_mc=True))
-    if any(t.device != dev for t in (r_mt, r_X, r_chi2)):
-        fail("selfcal: an output of bundle_adjustment(free_mc=True) lies off the card")
+    selfcal_bundle = opt.self_calibrating_bundle_adjustment
+    r_mt, r_X, r_chi2 = held(
+        "bundle_adjustment(free_mc=True)", opt.bundle_adjustment,
+        (rig_pert, mt0, X0, problem), dict(iters=SELFCAL_ITERS, free_mc=True),
+        eager=lambda *a, iters, free_mc: [selfcal_bundle.fn(*a, iters=iters)[i]
+                                          for i in (0, 1, 3)],
+        graph=selfcal_bundle.graph)
+    if not (torch.equal(r_mt, mt) and torch.equal(r_X, X) and torch.equal(r_chi2, chi2)):
+        fail("selfcal: bundle_adjustment(free_mc=True) differs from the self-calibrating BA")
     cost1, cost_r = robust_cost(chi2, obs), robust_cost(r_chi2, obs)
     before, after = error(mc_pert, mc_ref), error(mc, mc_ref)
     print(f"selfcal: from the perturbed rig the cameras end {dist(mc, mc_ref)} from where the "
           f"BA takes the rig the map was built with (started {dist(mc_pert, mc_ref)}), "
           f"{dist(mc, mc_true)} from that rig, which itself ends {dist(mc_ref, mc_true)} from "
-          f"it; bundle_adjustment(free_mc=True) {ms_r:.3f} ms, cost {cost_r:.3f}, poses within "
-          f"{float((r_mt - mt).abs().max()):.2e} ({card})")
+          f"it; bundle_adjustment(free_mc=True) cost {cost_r:.3f}, identical ({card})")
     if not torch.equal(mc[0], mc_pert[0]) or not torch.equal(mc_ref[0], mc_true[0]):
         fail("selfcal: camera 0, the gauge, moved")
     if not bool((SELFCAL_MIN_GAIN * after[1:] <= before[1:]).all()):
@@ -2985,14 +3043,10 @@ def selfcal_phase(dev, card, slam, ring):
     v_pert[:, 3] += 1.5
     v_pert[:, 4] -= 1.0
     rig_i = Rig(M_c=ring.M_c, cams=ring.cams.with_vector17(v_pert))
-    (cams_r, v17, cost_i), cold = timed(lambda: opt.refine_intrinsics(
-        rig_i, mt0, X0, obs, iters=INTRINSICS_ITERS))
-    _, warm = timed(lambda: opt.refine_intrinsics(rig_i, mt0, X0, obs, iters=INTRINSICS_ITERS))
-    if any(t.device != dev for t in (v17, cost_i, *cams_r)):
-        fail("selfcal: an output of refine_intrinsics lies off the card")
+    cams_r, v17, cost_i = held("refine_intrinsics", opt.refine_intrinsics,
+                               (rig_i, mt0, X0, obs), dict(iters=INTRINSICS_ITERS))
     d_u, d_v = (v17[:, 3] - v_true[:, 3]).abs(), (v17[:, 4] - v_true[:, 4]).abs()
-    print(f"selfcal: refine_intrinsics {INTRINSICS_ITERS} iterations, ms cold {cold:.3f}, warm "
-          f"{warm:.3f}; |u0 - truth| per camera {[round(float(x), 4) for x in d_u]} px (from "
+    print(f"selfcal: refine_intrinsics {INTRINSICS_ITERS} iterations; |u0 - truth| per camera {[round(float(x), 4) for x in d_u]} px (from "
           f"1.5), |v0 - truth| {[round(float(x), 4) for x in d_v]} px (from 1.0); cost "
           f"{float(cost_i):.3f} ({card})")
     if not bool((INTRINSICS_MIN_GAIN * d_u <= 1.5).all() & (INTRINSICS_MIN_GAIN * d_v <= 1.0).all()):
@@ -3144,6 +3198,21 @@ class ShardSpy:
         self.bs.make_sharded_ba = self.orig
 
 
+class EagerShards:
+    """Inside the block, the sharded BAs built run their units as the
+    plain functions on the card (the graphed sharded BA's eager self)."""
+
+    def __enter__(self):
+        from multicol_slam_tpu_torch.parallel import ba_sharding
+        self.bs, self.orig = ba_sharding, ba_sharding.sharded_units
+        ba_sharding.sharded_units = lambda devices, pool: (ba_sharding.shard_linearize,
+                                                            ba_sharding.sharded_lm_step)
+        return self
+
+    def __exit__(self, *exc):
+        self.bs.sharded_units = self.orig
+
+
 def sharded_map_ba(dev, card, name, slam):
     """Phase 13 (b) on one system's map: run_global_ba on copies of the
     map with the default mesh (one card: single-device) and with
@@ -3164,28 +3233,39 @@ def sharded_map_ba(dev, card, name, slam):
     if global_ba.default_mesh(slam.rig) != [dev]:
         fail(f"the default mesh is {global_ba.default_mesh(slam.rig)}, not [{dev}]")
     runs = {}
-    for D in (1,) + SHARDS:
+
+    def global_run(D):
         c = map_copy(m)
         with ShardSpy() as spy:
             chi2, ms = timed(lambda: global_ba.run_global_ba(
                 slam.rig, c, [kfs[0]], sf, iters=GBA_ITERS, devices=None if D == 1 else [dev] * D))
         if spy.meshes != ([] if D == 1 else [D]):
             fail(f"{name}: run_global_ba at D={D} built sharded BAs for {spy.meshes}")
-        runs[D] = (c, chi2, ms)
+        return c, chi2, ms
+
+    for D in (1,) + SHARDS:
+        runs[D] = global_run(D)
     ref, chi2_1, ms_1 = runs[1]
     print(f"sharded BA, {name}: {len(kfs)} keyframes, {len(pts)} points, {GBA_ITERS} "
           f"iterations, float32: single-device chi2 {chi2_1:.4f} in {ms_1:.3f} ms ({card})")
     for D in SHARDS:
         c, chi2, ms = runs[D]
+        with EagerShards():
+            e, e_chi2, e_ms = global_run(D)
+        same = (chi2 == e_chi2 and np.array_equal(c.kf_pose, e.kf_pose)
+                and np.array_equal(c.pt_pos, e.pt_pos))
         rel = abs(chi2 - chi2_1) / chi2_1
         d_pose = float(np.abs(c.kf_pose[kfs] - ref.kf_pose[kfs]).max())
         d_pt = float(np.abs(c.pt_pos[pts] - ref.pt_pos[pts]).max())
         gauge = np.array_equal(c.kf_pose[kfs[0]], m.kf_pose[kfs[0]])
-        print(f"sharded BA, {name}, D={D} on one card: chi2 {chi2:.4f} (relative to "
+        print(f"sharded BA, {name}, D={D} on one card, graphed: chi2 {chi2:.4f} (relative to "
               f"single-device {rel:.3e}), largest pose difference {d_pose:.3e}, point "
-              f"difference {d_pt:.3e} m, gauge unmoved {gauge}, {ms:.3f} ms ({card})")
+              f"difference {d_pt:.3e} m, gauge unmoved {gauge}, {ms:.3f} ms; the map it writes "
+              f"identical to its eager self's {same} (eager {e_ms:.3f} ms) ({card})")
         if not np.isfinite(chi2) or rel > SHARD_MAX_REL or not gauge:
             fail(f"{name}: the sharded BA at D={D} is off the single-device run")
+        if not same:
+            fail(f"{name}: the graphed sharded BA at D={D} differs from its eager self")
 
     # the same problem in float64, element-wise
     fixed = np.arange(len(kfs)) == 0
@@ -3201,15 +3281,20 @@ def sharded_map_ba(dev, card, name, slam):
     worst = 0.0
     for D in SHARDS:
         devs = [dev] * D
-        ba = bs.make_sharded_ba(devs, rig, N, P, iters=GBA_ITERS)
-        mt, X, _ = ba(mt0, X0, bs.shard_obs(bs.pad_obs_to_multiple(obs, D), devs),
-                      problem.pt_obs, problem.fixed_kf, problem.fixed_pt)
+        args = (mt0, X0, bs.shard_obs(bs.pad_obs_to_multiple(obs, D), devs),
+                problem.pt_obs, problem.fixed_kf, problem.fixed_pt)
+        mt, X, cost = bs.make_sharded_ba(devs, rig, N, P, iters=GBA_ITERS)(*args)
+        with EagerShards():
+            eager = bs.make_sharded_ba(devs, rig, N, P, iters=GBA_ITERS)(*args)
         if mt.device != dev or X.device != dev:
             fail(f"{name}: the float64 sharded BA's outputs lie off the card")
+        if not identical((mt, X, cost), eager):
+            fail(f"{name}: the float64 graphed sharded BA at D={D} differs from its eager self")
         d = max(float((mt - mt1).abs().max()), float((X - X1).abs().max()))
         worst = max(worst, d)
         print(f"sharded BA, {name}, float64, D={D}: poses {float((mt - mt1).abs().max()):.3e}, "
-              f"points {float((X - X1).abs().max()):.3e} from the single-device run")
+              f"points {float((X - X1).abs().max()):.3e} from the single-device run; graphed "
+              f"identical to eager")
     if not worst <= SHARD_F64_TOL:
         fail(f"{name}: the float64 sharded BA is {worst:.3e} off the single-device run")
 
@@ -3245,7 +3330,7 @@ def map_scale_ba(dev, card):
     the D = 8 run above what the process held before it."""
     from multicol_slam_tpu_torch.models import optimizer as opt
     from multicol_slam_tpu_torch.parallel import ba_sharding as bs
-    from multicol_slam_tpu_torch.utils import config_io, synthetic
+    from multicol_slam_tpu_torch.utils import config_io, graphs, synthetic
 
     rig = config_io.load_mcs(config_io.SYNTH_RIG_DIR)[0].to(dev)
     (mt_true, X_true, uv, kf, cam, pt, valid, pt_obs), build_ms = timed(
@@ -3290,17 +3375,26 @@ def map_scale_ba(dev, card):
         print(f"map-scale BA, {name}: robust cost by iteration "
               f"{[round(c, 4) for c in costs]}, steps taken {taken}")
 
-    # the full LMs, warm, timed: the single path and D = 1, 2, 4, 8
-    def single():
-        mt, X, _ = opt.bundle_adjustment(rig, mt0, X0, problem, iters=MAP_ITERS)
+    # the full LMs, warm, timed: the single path and D = 1, 2, 4, 8, each
+    # graphed (the single path as the system's global BA graphs it) and
+    # eager, the graph held to its eager self bit for bit
+    single_graph = graphs.jit(opt.bundle_adjustment)
+
+    def single(adjust):
+        mt, X, _ = adjust(rig, mt0, X0, problem, iters=MAP_ITERS)
         return mt, X, cost_of(mt, X)[0]
 
-    runs = {"single": single}
+    runs = {"single": lambda: single(single_graph),
+            "single eager": lambda: single(opt.bundle_adjustment)}
     for D in (1,) + SHARDS:
         devs = [dev] * D
         sh = bs.shard_obs(bs.pad_obs_to_multiple(obs, D), devs)
         ba = bs.make_sharded_ba(devs, rig, MAP_KF, MAP_PT, iters=MAP_ITERS)
+        with EagerShards():
+            ba_eager = bs.make_sharded_ba(devs, rig, MAP_KF, MAP_PT, iters=MAP_ITERS)
         runs[f"D={D}"] = lambda ba=ba, sh=sh: ba(mt0, X0, sh, pt_obs, fixed_kf, fixed_pt)
+        runs[f"D={D} eager"] = lambda ba=ba_eager, sh=sh: ba(mt0, X0, sh, pt_obs, fixed_kf,
+                                                              fixed_pt)
     out, ms = {}, {}
     for name, run in runs.items():
         run()
@@ -3308,11 +3402,16 @@ def map_scale_ba(dev, card):
             torch.cuda.reset_peak_memory_stats(dev)
             held = torch.cuda.memory_allocated(dev)
         out[name], ms[name] = timed(run)
-    peak = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 20
-    print(f"map-scale BA ms an iteration ({MAP_ITERS} iterations, warm): "
+        if name == f"D={SHARDS[-1]}":
+            peak = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 20
+    print(f"map-scale BA ms an iteration ({MAP_ITERS} iterations, warm; graphed, and eager): "
           f"{ {k: round(v / MAP_ITERS, 3) for k, v in ms.items()} }; shards share one card, "
-          f"so this is the cost of sharding, not scaling; peak memory of the D={SHARDS[-1]} "
-          f"run {peak:.1f} MiB above the {held / 2 ** 20:.1f} MiB held before it ({card})")
+          f"so this is the cost of sharding, not scaling; peak memory of the graphed "
+          f"D={SHARDS[-1]} run {peak:.1f} MiB above the {held / 2 ** 20:.1f} MiB held before it "
+          f"({card})")
+    for name in [k for k in out if not k.endswith(" eager")]:
+        if not identical(out[name], out[name + " eager"]):
+            fail(f"map-scale BA, {name}: the graphed run differs from its eager self")
     c1 = float(out["single"][2])
     for name, (mt, X, c) in out.items():
         if any(t.device != dev for t in (mt, X, c)):
@@ -3338,6 +3437,22 @@ def clone_tree(tree):
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
     return tree
+
+
+def tensor_leaves(tree) -> list:
+    """The tensors of nested tuples (NamedTuples too), lists and dicts."""
+    from multicol_slam_tpu_torch.utils import graphs
+
+    out: list = []
+    graphs._flatten(tree, out)
+    return out
+
+
+def identical(got, want) -> bool:
+    """Every tensor of got equal to want's, bit for bit, of the same dtype."""
+    a, b = tensor_leaves(got), tensor_leaves(want)
+    return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                    for x, y in zip(a, b))
 
 
 def tree_err(got, want, what):
@@ -4525,7 +4640,12 @@ def tracker_graph_phase(dev, card, slam, frames, eig_spies, eig_launches):
           f"generators) {({n: (c['captures'], c['replays'], c['generators']) for n, c in st.items() if n in names})} "
           f"({card})")
     print(f"phase 17 (c): phase 6's capture-ahead captured {tr.captured_ahead}; captured "
-          f"after it (frame, unit, captures): {tr.late_captures}")
+          f"after it (frame, unit, captures): over phase 6 {LATE_CAPTURES['phase 6']}, to "
+          f"now {tr.late_captures}")
+    late6 = [c for c in LATE_CAPTURES["phase 6"] if c[1] in AHEAD_UNITS]
+    if late6 or not set(AHEAD_UNITS) <= set(tr.captured_ahead):
+        fail(f"phase 17: over phase 6 the WORKING step or the scan body captured after the "
+             f"capture-ahead ({late6}), or it did not capture them ({tr.captured_ahead})")
     late7 = TRACKER_PHASES["phase 7"].captures
     if late7["_gpnp"] or late7["_pose_opt"]:
         fail(f"phase 17: GP3P or the pose LM captured on phase 7's relocalizations: {dict(late7)}")

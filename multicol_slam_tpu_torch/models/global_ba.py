@@ -38,7 +38,7 @@ def default_mesh(rig: Rig) -> list[torch.device]:
 def run_global_ba(rig: Rig, m, fixed_ids: Sequence[int], scale_factor: float, *,
                   iters: int = 10, huber: Optional[float] = None,
                   devices: Optional[Sequence] = None,
-                  bundle_adjust: Optional[Callable] = None) -> float:
+                  bundle_adjust: Optional[Callable] = None, pool=None) -> float:
     """Assemble and solve the full-map BA and write the result back into
     the MapStore. ``fixed_ids``: keyframes held as the gauge (the
     reference fixes KF0, cOptimizer.cpp:96-99; the loop closer fixes the
@@ -47,8 +47,11 @@ def run_global_ba(rig: Rig, m, fixed_ids: Sequence[int], scale_factor: float, *,
     observations are sharded over it and the reduced system is solved on
     the first. ``bundle_adjust``: the single-device branch's adjuster
     (``optimizer.bundle_adjustment`` if None; the loop closer and the
-    system pass it graphed on the card). Returns the final chi2 summed
-    over the valid observations, from
+    system pass it graphed on the card). ``pool``: the ``graphs.Pool`` of
+    the sharded branch's graphs on cards (``graphs.SHARED`` if None): the
+    pool of the caller's thread, whose graphs replay one at a time; a
+    later call on a map of the same buckets replays them. Returns the
+    final chi2 summed over the valid observations, from
     either branch (the JAX package returns the robust cost from its
     sharded branch and this sum from the other; the Huber weighting is
     not in it), -1.0 for a degenerate problem."""
@@ -70,7 +73,7 @@ def run_global_ba(rig: Rig, m, fixed_ids: Sequence[int], scale_factor: float, *,
     if len(mesh) > 1:
         obs = ba_sharding.pad_obs_to_multiple(problem.obs, len(mesh))
         ba = ba_sharding.make_sharded_ba(mesh, rig, mt0.shape[0], X0.shape[0],
-                                         iters=iters, huber=huber)
+                                         iters=iters, huber=huber, pool=pool)
         mt_t, X_t, _ = ba(to_device(mt0, mesh[0]), to_device(X0, mesh[0]),
                           ba_sharding.shard_obs(obs, mesh), problem.pt_obs,
                           problem.fixed_kf, problem.fixed_pt)

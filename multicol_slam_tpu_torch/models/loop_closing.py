@@ -144,7 +144,9 @@ class LoopCloser:
         # the jitted units: CUDA graphs on the card, none on the CPU
         self.graphs: dict = {}
         if self.dev.type == "cuda":
-            pool = self.pool if self.pool is not None else graphs.Pool("loop")
+            if self.pool is None:
+                self.pool = graphs.Pool("loop")
+            pool = self.pool
             self.graphs = {name: graphs.jit(getattr(mod, name), pool)
                            for name, mod in UNITS.items()}
             if self.bundle_adjust is not None:
@@ -659,8 +661,9 @@ class LoopCloser:
     def _global_ba(self, fixed_kf: int):
         """Post-loop global BA through ``global_ba.run_global_ba``, the
         loop keyframe as the gauge so the corrected region anchors the
-        map, with the closer's bundle_adjustment unit."""
+        map, with the closer's bundle_adjustment unit and, sharded, the
+        closer's pool (the mapper's when the system wires it)."""
         run_global_ba(self.rig, self.map, [fixed_kf], self.scale_factor,
                       iters=self.global_ba_iters,
-                      bundle_adjust=self.unit("bundle_adjustment"))
+                      bundle_adjust=self.unit("bundle_adjustment"), pool=self.pool)
 

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import pose_lm
+from ..utils import graphs
 from ..ops.camera import CameraModel, world_to_img
 from ..ops.geometry import (cayley2hom, cayley2rot, cayley_rot_grads, horner,
                             inv3x3, inv_se3)
@@ -45,6 +46,10 @@ HUBER_LOCAL = 1.345 * 2.0        # stdRecon = 2.0 (cOptimizer.cpp:54)
 HUBER_GLOBAL = 5.991 ** 0.5      # GlobalBundleAdjustment sqrt(5.991)
 LM_TAU = 1e-5                    # g2o initial lambda heuristic
 GAIN_EPS = 1e-6                  # termination gain threshold
+# the self-calibrating optimizers' CUDA graphs: a pool of their own, since
+# the system's BA graphs replay on other threads (the mapper's, the
+# tracker's)
+CALIBRATION = graphs.Pool("calibration")
 
 
 class BAObservations(NamedTuple):
@@ -499,6 +504,7 @@ def bundle_adjustment(rig: Rig, mt_min0: torch.Tensor, X0: torch.Tensor,
     return mt, X, chi2
 
 
+@graphs.compiled(CALIBRATION)
 def refine_intrinsics(rig: Rig, mt_all: torch.Tensor, X: torch.Tensor,
                       obs: BAObservations, *, iters: int = 8,
                       huber: float = HUBER_GLOBAL):
@@ -507,8 +513,10 @@ def refine_intrinsics(rig: Rig, mt_all: torch.Tensor, X: torch.Tensor,
     edges.h:41-79, additive update) with poses and points held: one 17x17
     damped normal system per camera (cameras do not couple), exactly
     ``iters`` accept / reject steps from lambda 1e-3, the JAX package's
-    ``fori_loop``. Returns (cams', per-camera 17-vectors (C, 17), final
-    robust cost), on the inputs' device."""
+    ``fori_loop``. The per-camera sums are a ``RowSum``. On CUDA tensors a
+    CUDA graph of ``CALIBRATION`` (one per key, as ``jax.jit``), on the
+    CPU the plain function. Returns (cams', per-camera 17-vectors (C, 17),
+    final robust cost), on the inputs' device."""
     dt, dev = X.dtype, X.device
     C = rig.n_cams
     kf, cam, pt = obs.kf.long(), obs.cam.long(), obs.pt.long()
@@ -519,6 +527,7 @@ def refine_intrinsics(rig: Rig, mt_all: torch.Tensor, X: torch.Tensor,
     Xc = torch.einsum("kij,kj->ki", T[:, :3, :3], X[pt]) + T[:, :3, 3]
     eye = torch.eye(17, dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
+    by_cam = RowSum(cam, C, obs.valid)
 
     def residuals(v17):
         return obs.uv - world_to_img(cams0.with_vector17(v17).index(cam), Xc)
@@ -529,10 +538,8 @@ def refine_intrinsics(rig: Rig, mt_all: torch.Tensor, X: torch.Tensor,
         w = torch.where(obs.valid, _huber_w(chi2, huber) * obs.inv_sigma2, zero)
         J = intrinsics_jacobian(Xc, cams0.with_vector17(v17).index(cam))   # (K, 2, 17)
         wJ = J * w[:, None, None]
-        H = torch.zeros((C, 17, 17), dtype=dt, device=dev).index_add_(
-            0, cam, torch.einsum("kri,krj->kij", wJ, J))
-        g = torch.zeros((C, 17), dtype=dt, device=dev).index_add_(
-            0, cam, torch.einsum("kri,kr->ki", wJ, r))
+        H = by_cam.sum(torch.einsum("kri,krj->kij", wJ, J))
+        g = by_cam.sum(torch.einsum("kri,kr->ki", wJ, r))
         return v17 - torch.linalg.solve_ex(H + lam * eye, g)[0]
 
     v = cams0.to_vector17().to(dt)
@@ -548,6 +555,7 @@ def refine_intrinsics(rig: Rig, mt_all: torch.Tensor, X: torch.Tensor,
     return cams0.with_vector17(v), v, cost
 
 
+@graphs.compiled(CALIBRATION)
 def self_calibrating_bundle_adjustment(rig: Rig, mt_min0: torch.Tensor,
                                        X0: torch.Tensor, problem: BAProblem, *,
                                        huber: float = HUBER_GLOBAL, iters: int = 10):
@@ -564,8 +572,12 @@ def self_calibrating_bundle_adjustment(rig: Rig, mt_min0: torch.Tensor,
     and does not move, as in the JAX package. Per-point rows of both vertex
     kinds (P, 2M, 6, 3) are folded into the system one row at a time;
     ``iters`` masked LM steps from lambda 1e-4 freeze at the GAIN_EPS
-    test, with no host sync. Returns (mt (N, 6), X (P, 3), mc (C, 6),
-    per-observation chi2 (K,)), on the inputs' device."""
+    test, with no host sync. Every sum into vertices, vertex pairs and
+    points is a ``RowSum``, its table made once a call (the Schur fold one
+    a row of ``pt_obs``). On CUDA tensors a CUDA graph of ``CALIBRATION``
+    (one per key, as ``jax.jit``), on the CPU the plain function. Returns
+    (mt (N, 6), X (P, 3), mc (C, 6), per-observation chi2 (K,)), on the
+    inputs' device."""
     obs = problem.obs
     N, P, C = mt_min0.shape[0], X0.shape[0], rig.n_cams
     NV = N + C
@@ -585,6 +597,16 @@ def self_calibrating_bundle_adjustment(rig: Rig, mt_min0: torch.Tensor,
     pt_obs = problem.pt_obs.long()
     vpad = torch.cat([vert_p[pt_obs], vert_m[pt_obs]], 1)         # (P, 2M)
     ok_pad = obs.valid[pt_obs].repeat(1, 2)
+    # the vertex blocks (NV * NV, 6, 6): the diagonal and keyframe <-> camera
+    by_block = RowSum(torch.cat([vert_p * NV + vert_p, vert_m * NV + vert_m,
+                                 vert_p * NV + vert_m, vert_m * NV + vert_p]), NV * NV,
+                      obs.valid.repeat(4))
+    by_vert = RowSum(torch.cat([vert_p, vert_m]), NV, obs.valid.repeat(2))
+    by_pt = RowSum(pt, P, obs.valid)
+    by_pair = [RowSum((vpad[:, mrow, None] * NV + vpad).reshape(-1), NV * NV,
+                      (ok_pad[:, mrow, None] & ok_pad).reshape(-1))
+               for mrow in range(vpad.shape[1])]
+    by_vpad = RowSum(vpad.reshape(-1), NV, ok_pad.reshape(-1))
 
     def project(mt_all, mc_all, X_all):
         T = inv_se3(cayley2hom(mt_all)[kf] @ cayley2hom(mc_all)[cam])
@@ -594,10 +616,6 @@ def self_calibrating_bundle_adjustment(rig: Rig, mt_min0: torch.Tensor,
 
     def cost_of(mt_all, mc_all, X_all):
         return _robust_cost(project(mt_all, mc_all, X_all)[3], obs, huber)
-
-    def block(idx, vals, n):
-        return torch.zeros((n,) + tuple(vals.shape[1:]), dtype=dt,
-                           device=dev).index_add_(0, idx, vals)
 
     def schur_step(mt_all, mc_all, X_all, lam):
         T, Xk, Xc, r = project(mt_all, mc_all, X_all)
@@ -612,18 +630,14 @@ def self_calibrating_bundle_adjustment(rig: Rig, mt_min0: torch.Tensor,
         Jx = torch.where(problem.fixed_pt[pt][:, None, None], zero, Jx)
         wJp, wJm, wJx = (J * w[:, None, None] for J in (Jp, Jm, Jx))
 
-        # vertex blocks (NV * NV, 6, 6): the diagonal and keyframe <-> camera
         Hpm = torch.einsum("kri,krj->kij", wJp, Jm)
-        H = block(torch.cat([vert_p * NV + vert_p, vert_m * NV + vert_m,
-                             vert_p * NV + vert_m, vert_m * NV + vert_p]),
-                  torch.cat([torch.einsum("kri,krj->kij", wJp, Jp),
-                             torch.einsum("kri,krj->kij", wJm, Jm),
-                             Hpm, Hpm.transpose(-1, -2)]), NV * NV)
-        g = block(torch.cat([vert_p, vert_m]),
-                  torch.cat([torch.einsum("kri,kr->ki", wJp, r),
-                             torch.einsum("kri,kr->ki", wJm, r)]), NV)
-        Hxx = block(pt, torch.einsum("kri,krj->kij", wJx, Jx), P)
-        gx = block(pt, torch.einsum("kri,kr->ki", wJx, r), P)
+        H = by_block.sum(torch.cat([torch.einsum("kri,krj->kij", wJp, Jp),
+                                    torch.einsum("kri,krj->kij", wJm, Jm),
+                                    Hpm, Hpm.transpose(-1, -2)]))
+        g = by_vert.sum(torch.cat([torch.einsum("kri,kr->ki", wJp, r),
+                                   torch.einsum("kri,kr->ki", wJm, r)]))
+        Hxx = by_pt.sum(torch.einsum("kri,krj->kij", wJx, Jx))
+        gx = by_pt.sum(torch.einsum("kri,kr->ki", wJx, r))
         Ep = torch.einsum("kri,krj->kij", wJp, Jx)                   # (K, 6, 3)
         Em = torch.einsum("kri,krj->kij", wJm, Jx)
 
@@ -634,14 +648,13 @@ def self_calibrating_bundle_adjustment(rig: Rig, mt_min0: torch.Tensor,
         Tm = torch.einsum("pmij,pjk->pmik", Epad, Ci)
         # one row at a time: peak memory (P, 2M, 6, 6), not (P, 2M, 2M, 6, 6)
         S = torch.zeros((NV * NV, 6, 6), dtype=dt, device=dev)
-        for mrow in range(Tm.shape[1]):
+        for mrow, seg in enumerate(by_pair):
             contrib = torch.einsum("pik,pnjk->pnij", Tm[:, mrow], Epad)
-            S.index_add_(0, (vpad[:, mrow, None] * NV + vpad).reshape(-1),
-                         contrib.reshape(-1, 6, 6))
+            S = seg.add_to(S, contrib.reshape(-1, 6, 6))
         S = H - S
         S[diag] = S[diag] + lam * eye6
         Tg = torch.einsum("pmik,pk->pmi", Tm, gx)
-        g_red = g - block(vpad.reshape(-1), Tg.reshape(-1, 6), NV)
+        g_red = g - by_vpad.sum(Tg.reshape(-1, 6))
         Smat = S.reshape(NV, NV, 6, 6).permute(0, 2, 1, 3).reshape(6 * NV, 6 * NV)
         Smat = torch.where(fixed_rc, eye6n, Smat)
         gvec = torch.where(fixed6, zero, g_red.reshape(6 * NV))

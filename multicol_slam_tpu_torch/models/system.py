@@ -510,15 +510,17 @@ class MultiColSLAM:
     def global_bundle_adjustment(self, iters: int = 10) -> float:
         """cOptimizer::GlobalBundleAdjustment (cOptimizer.cpp:57-257): joint
         LM over every keyframe pose and point, the first keyframe fixed as
-        the gauge, on one device (on the card a CUDA graph in the shared
-        pool, on the caller's thread); then the points' viewing rays and
-        distance ranges are refreshed. Returns the final summed chi2."""
+        the gauge, on one device or sharded over a mesh of cards (on the
+        card CUDA graphs in the shared pool, on the caller's thread); then
+        the points' viewing rays and distance ranges are refreshed. Returns
+        the final summed chi2."""
         m = self.map
         kfs = m.keyframe_ids().tolist()
         if len(kfs) < 2:
             return 0.0
         cost = run_global_ba(self.rig, m, [min(kfs)], self.settings.scale_factor,
-                             iters=iters, bundle_adjust=self._global_adjust)
+                             iters=iters, bundle_adjust=self._global_adjust,
+                             pool=graphs.SHARED)
         if cost < 0:
             return 0.0
         m.update_point_stats(np.nonzero(m.pt_valid)[0].astype(np.int64),

@@ -38,6 +38,7 @@ frame. On the CPU the functions run eagerly.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 from typing import Optional
@@ -585,9 +586,16 @@ class Tracker:
         (C, H, W) uint8 or float. Returns the estimated M_t (4x4) or None
         while not tracking. After the capture-ahead, a unit that captures a
         graph on a frame is noted in ``late_captures``."""
+        with self._noting_late_captures():
+            return self._track(images, timestamp)
+
+    @contextlib.contextmanager
+    def _noting_late_captures(self):
+        """Note in ``late_captures`` the units that captured inside the
+        block, once the capture-ahead has run."""
         before, ahead = self._unit_captures(), bool(self.captured_ahead)
         try:
-            return self._track(images, timestamp)
+            yield
         finally:
             if ahead:
                 after = self._unit_captures()
@@ -783,12 +791,15 @@ class Tracker:
         associations, the results discarded: the standalone extraction,
         the previous-frame window search, the pose LM (C * K rows), the
         local-map step at the tracking window and at the second chance's
-        (the current snapshot's cap), the GP3P RANSAC and the projection
-        round (C * K rows) and, when a loop closer is wired, the frame's
-        BoW transforms. ``gen``'s state is restored after it, so the run
-        draws what an eager run draws. A key that depends on the map's size
-        (a later local map's cap) or a retrained vocabulary can still
-        capture on a later frame (``late_captures``)."""
+        (the current snapshot's cap), the WORKING step and the chunk scan's
+        body at the tracking thresholds and that cap (this frame tracked
+        from the reference keyframe), the GP3P RANSAC and the projection
+        round (C * K rows) and, when a loop closer is wired, the frame's BoW
+        transforms. ``gen``'s state is restored after it, so the run draws
+        what an eager run draws; the map and the tracker's state are left as
+        they were. A key that depends on the map's size (a later local map's
+        cap) or a retrained vocabulary can still capture on a later frame
+        (``late_captures``)."""
         if not isinstance(self._pose_opt, graphs.jit) or self.captured_ahead:
             return
         before = self._unit_captures()
@@ -819,6 +830,32 @@ class Tracker:
                         arrs["dmask"], self.cur_feats, has_t, self._to_dev(slot_X), has_t,
                         self.params, th=th, n_levels=self.cfg.n_levels,
                         scale_factor=self.cfg.scale_factor)
+                # the WORKING step and the chunk scan's body at the tracking
+                # thresholds and this cap, tracking this frame from the
+                # reference keyframe at this frame's pose (its own features
+                # as the last frame would match themselves exactly)
+                ref = min((k for k in m.keyframe_ids().tolist() if k != self.last_kf_id),
+                          key=lambda k: m.kf_frame_id[k], default=self.last_kf_id)
+                ref_pt = m.kf_pt[ref]
+                ref_has = ref_pt >= 0
+                ref_X = np.zeros(ref_pt.shape + (3,), np.float32)
+                ref_X[ref_has] = m.pt_pos[ref_pt[ref_has]]
+                last = m.kf_features[ref]
+                local = (arrs["X"], arrs["normal"], arrs["mind"], arrs["maxd"],
+                         arrs["cand_base"], arrs["desc"], arrs["dmask"], self.params)
+                thresholds = dict(th_motion=self.cfg.motion_th, th_local=self.cfg.local_map_th,
+                                  n_levels=self.cfg.n_levels,
+                                  scale_factor=self.cfg.scale_factor)
+                self._working_step(
+                    self.extract, self.rig, images, self._to_dev(self.cur_mt),
+                    self._to_dev(ref_X), self._to_dev(ref_has), last,
+                    self._to_dev(self._slot_lookup(ref_pt, ref_has, local_pts, cap)),
+                    *local, **thresholds)
+                slot_lp, carried = self._snapshot_slots(ref_pt, ref_has, local_pts)
+                carry = (last, self._to_dev(ref_X), self._to_dev(slot_lp),
+                         self._to_dev(carried), self._to_dev(self.cur_mt, torch.float32),
+                         self._to_dev(np.eye(4), torch.float32))
+                self._scan_body(self.extract, self.rig, images, carry, *local, **thresholds)
             if self.reloc_transform_ahead_fn is not None:
                 self.reloc_transform_ahead_fn(self.cur_feats)
         finally:
@@ -912,17 +949,10 @@ class Tracker:
         local_pts, cap, arrs = lm_in
         M_last = se3_np.cayley2hom(self.last_mt)
         mt_pred = se3_np.hom2cayley(M_last @ self.velocity)
-        C, K = self.last_pt.shape
         P = len(local_pts)
         # per-camera inverse lookup landmark -> last-frame slot, so the
         # device can exclude local points already in the frame
-        lp_slot = np.full((cap, C), -1, np.int32)
-        inv = np.full(self.map.pt_pos.shape[0], -1, np.int32)
-        for c in range(C):
-            inv[:] = -1
-            s = np.nonzero(has[c])[0]
-            inv[self.last_pt[c, s]] = s
-            lp_slot[:P, c] = inv[local_pts]
+        lp_slot = self._slot_lookup(self.last_pt, has, local_pts, cap)
 
         self._dispatch_n += 1
         out = self._working_step(
@@ -970,6 +1000,31 @@ class Tracker:
         self.n_tracked.append(len(tracked))
         return n_in2 >= self.cfg.min_inliers_local
 
+    def _slot_lookup(self, pt, has, local_pts, cap):
+        """(cap, C) int32: per camera the slot of ``pt`` (C, K) that holds
+        each local-map point where ``has``, else -1 (the fused step's
+        ``lp_slot``)."""
+        lp_slot = np.full((cap, pt.shape[0]), -1, np.int32)
+        inv = np.full(self.map.pt_pos.shape[0], -1, np.int32)
+        for c in range(pt.shape[0]):
+            inv[:] = -1
+            s = np.nonzero(has[c])[0]
+            inv[pt[c, s]] = s
+            lp_slot[:len(local_pts), c] = inv[local_pts]
+        return lp_slot
+
+    def _snapshot_slots(self, pt, has, local_pts):
+        """(slot_lp (C, K) int32, carried (C, K) bool): each slot's index
+        into the local-map snapshot, -1 for none, and the slots of ``has``
+        that carry a snapshot point (the chunk scan's carry)."""
+        id_to_lp = np.full(self.map.pt_pos.shape[0], -1, np.int32)
+        id_to_lp[local_pts] = np.arange(len(local_pts), dtype=np.int32)
+        slot_lp = np.full(pt.shape, -1, np.int32)
+        carried = has.copy()
+        slot_lp[carried] = id_to_lp[pt[carried]]
+        carried &= slot_lp >= 0     # landmarks outside the snapshot do not carry
+        return slot_lp, carried
+
     def _apply_local_matches(self, match, inl_new, local_pts, P) -> int:
         """Give free slots their local-map matches and flag the matches the
         LM rejected; returns the number of new associations."""
@@ -985,6 +1040,12 @@ class Tracker:
         return n_new
 
     def track_chunk(self, images, timestamps):
+        """``_track_chunk``, a unit that captures in it noted in
+        ``late_captures`` (after the capture-ahead)."""
+        with self._noting_late_captures():
+            return self._track_chunk(images, timestamps)
+
+    def _track_chunk(self, images, timestamps):
         """B consecutive steady-state WORKING frames through
         ``working_scan_chunk`` (``working_track_step`` and the slot roll
         over every frame) and one fetch of the stacked per-frame outputs;
@@ -1023,12 +1084,7 @@ class Tracker:
         C, K = self.last_pt.shape
         # slot -> snapshot index: the device carries associations by
         # snapshot index, resolved back to landmark ids in the walk
-        id_to_lp = np.full(m.pt_pos.shape[0], -1, np.int32)
-        id_to_lp[local_pts] = np.arange(P, dtype=np.int32)
-        slot_lp0 = np.full((C, K), -1, np.int32)
-        hs = has.copy()
-        slot_lp0[hs] = id_to_lp[self.last_pt[hs]]
-        hs &= slot_lp0 >= 0     # landmarks outside the snapshot do not carry
+        slot_lp0, hs = self._snapshot_slots(self.last_pt, has, local_pts)
 
         captures = getattr(self._scan_body, "captures", 0)
         with self.timers.time("working_chunk"):

@@ -36,6 +36,7 @@ import torch
 from ..models import optimizer as opt
 from ..models.optimizer import BAObservations
 from ..ops.rig import Rig
+from ..utils import graphs
 
 
 def mesh_devices(devices: Sequence) -> list[torch.device]:
@@ -80,9 +81,13 @@ def shard_obs(obs: BAObservations, devices: Sequence) -> list[BAObservations]:
 def reduce_sum(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
     """The sum of per-shard tensors in shard order, on ``device`` (the
     counterpart of ``psum``)."""
-    out = parts[0].to(device)
+    return _in_shard_order([t.to(device) for t in parts])
+
+
+def _in_shard_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    out = parts[0]
     for t in parts[1:]:
-        out = out + t.to(device)
+        out = out + t
     return out
 
 
@@ -92,92 +97,150 @@ def gather_rows(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Te
     return torch.cat([t.to(device) for t in parts])
 
 
+def shard_linearize(rig: Rig, obs: BAObservations, fixed_kf: torch.Tensor,
+                    fixed_pt: torch.Tensor, mt: torch.Tensor, X: torch.Tensor,
+                    n_kf: int, n_pt: int, huber: float):
+    """One shard's linearization at (mt, X), on its device: the blocks of
+    ``optimizer.make_ba_blocks`` (Hpp, gp, Hxx, gx, E) and the shard's
+    robust cost at that point. The unit graphed on each shard's device."""
+    blocks, _ = opt.make_ba_blocks(rig, obs, fixed_kf, fixed_pt, n_kf, n_pt, huber)
+    return blocks(mt, X)
+
+
+def sharded_lm_step(parts, mt_c: torch.Tensor, X_c: torch.Tensor, point, lm,
+                    kf: torch.Tensor, valid: torch.Tensor, pt_obs: torch.Tensor,
+                    fixed_kf: torch.Tensor, fixed_pt: torch.Tensor, n_kf: int,
+                    solve: bool):
+    """The root's part of one LM iteration, on ``devices[0]``: the shards'
+    ``parts`` (each ``shard_linearize``'s outputs at the candidate (mt_c,
+    X_c), already on this device) summed in shard order and their ``E``
+    rows gathered; then ``optimizer.lm_accept`` of the candidate against
+    the LM state ``lm`` = (cost, lam, done) at the current ``point`` =
+    (mt, X, blocks), or, with ``point`` None, the candidate taken as the
+    start (``lm``'s cost None); with ``solve``, the damped Schur step
+    (``optimizer.make_schur_solve`` over the whole table's ``kf``,
+    ``valid`` and ``pt_obs``) from the point kept. Returns a dict: the
+    ``point`` and ``lm`` kept and, with ``solve``, the ``next`` candidate.
+    A rejected candidate leaves the point's blocks, which its own
+    linearization made, so each point is linearized once. The unit graphed
+    on ``devices[0]``."""
+    cost_c = _in_shard_order([p[5] for p in parts])
+    blocks_c = tuple(_in_shard_order([p[i] for p in parts]) for i in range(4)) + (
+        torch.cat([p[4] for p in parts]),)
+    cost, lam, done = lm
+    if point is None:
+        mt, X, blocks, cost = mt_c, X_c, blocks_c, cost_c
+    else:
+        take, cost, lam, done = opt.lm_accept(cost, cost_c, lam, done)
+        mt = torch.where(take, mt_c, point[0])
+        X = torch.where(take, X_c, point[1])
+        blocks = tuple(torch.where(take, b_c, b) for b_c, b in zip(blocks_c, point[2]))
+    out = dict(point=(mt, X, blocks), lm=(cost, lam, done))
+    if solve:
+        dp, dx = opt.make_schur_solve(kf, valid, pt_obs, fixed_kf, fixed_pt, n_kf)(
+            *blocks, lam)
+        # r = m - pi, so the step is minus the solve
+        out["next"] = (mt - dp, X - dx)
+    return out
+
+
+def sharded_units(devices: Sequence[torch.device], pool):
+    """(shard_linearize, sharded_lm_step) for a mesh: on cards the pool's
+    CUDA graphs of them (``graphs.SHARED`` if ``pool`` is None), one
+    wrapper per pool and function, so a later BA of the same keys replays;
+    elsewhere the plain functions. A graph is captured on one device, so
+    the copies between devices stay outside them."""
+    if not graphs.graphed(devices[0]):
+        return shard_linearize, sharded_lm_step
+    pool = pool or graphs.SHARED
+    return pool.jit(shard_linearize), pool.jit(sharded_lm_step)
+
+
 def _sharded_problem(devs, rigs, obs_shards, pt_obs, fixed_kf, fixed_pt, n_kf, n_pt,
-                     huber):
-    """(cost_of, step) of one sharded problem: ``cost_of(mt, X)`` the
-    robust cost summed over the shards, ``step(mt, X, lam)`` one damped
-    Schur step -> (mt', X', robust cost at the input); every tensor in
-    and out on ``devices[0]``."""
+                     huber, units):
+    """``run(mt, X, point, lm, solve)`` of one sharded problem: every
+    shard linearizes at the candidate (mt, X) (the copies to and from its
+    device outside the units), then the root's ``sharded_lm_step``; every
+    tensor in and out on ``devices[0]``."""
     if len(obs_shards) != len(devs):
         raise ValueError(f"{len(obs_shards)} observation shards for {len(devs)} devices")
-    root = devs[0]
-    shards = []
     for d, o in zip(devs, obs_shards):
         if o.uv.device != d:
             raise ValueError(f"a shard lies on {o.uv.device}, its device is {d}")
-        shards.append(opt.make_ba_blocks(rigs[d], o, fixed_kf.to(d), fixed_pt.to(d),
-                                         n_kf, n_pt, huber))
-    solve = opt.make_schur_solve(
-        gather_rows([o.kf for o in obs_shards], root),
-        gather_rows([o.valid for o in obs_shards], root), pt_obs.to(root),
-        fixed_kf.to(root), fixed_pt.to(root), n_kf)
+    root = devs[0]
+    linearize, lm_step = units
+    fixed = {d: (fixed_kf.to(d), fixed_pt.to(d)) for d in dict.fromkeys(devs)}
+    tables = (gather_rows([o.kf for o in obs_shards], root),
+              gather_rows([o.valid for o in obs_shards], root), pt_obs.to(root),
+              fixed_kf.to(root), fixed_pt.to(root))
 
-    def replicas(t):
-        return {d: t.to(d) for d in dict.fromkeys(devs)}
+    def run(mt, X, point, lm, solve):
+        reps = {d: (mt.to(d), X.to(d)) for d in dict.fromkeys(devs)}
+        parts = [tuple(t.to(root) for t in linearize(rigs[d], o, *fixed[d], *reps[d],
+                                                     n_kf, n_pt, huber))
+                 for d, o in zip(devs, obs_shards)]
+        return lm_step(parts, mt, X, point, lm, *tables, n_kf, solve)
 
-    def cost_of(mt, X):
-        mts, Xs = replicas(mt), replicas(X)
-        return reduce_sum([cost(mts[d], Xs[d])[0] for d, (_, cost) in zip(devs, shards)],
-                          root)
-
-    def step(mt, X, lam):
-        mts, Xs = replicas(mt), replicas(X)
-        parts = [blocks(mts[d], Xs[d]) for d, (blocks, _) in zip(devs, shards)]
-        Hpp, gp, Hxx, gx = (reduce_sum([p[i] for p in parts], root) for i in range(4))
-        E = gather_rows([p[4] for p in parts], root)
-        cost = reduce_sum([p[5] for p in parts], root)
-        dp, dx = solve(Hpp, gp, Hxx, gx, E, lam)
-        # r = m - pi, so the step is minus the solve
-        return mt - dp, X - dx, cost
-
-    return cost_of, step
+    return run
 
 
 def make_sharded_ba_step(devices: Sequence, rig: Rig, n_kf: int, n_pt: int,
-                         huber: float = opt.HUBER_GLOBAL):
+                         huber: float = opt.HUBER_GLOBAL, pool=None):
     """One damped Schur step with the observations sharded over
     ``devices``:
         step(mt_min (N, 6), X (P, 3), obs_shards (from shard_obs), pt_obs
              (P, M), fixed_kf (N,), fixed_pt (P,), lam)
-          -> (mt_min', X', robust cost at the input), on devices[0]."""
+          -> (mt_min', X', robust cost at the input), on devices[0].
+    On cards each shard's linearization and the root's reduction and solve
+    are CUDA graphs of ``pool`` (``sharded_units``); ``lam`` becomes a
+    device tensor before them."""
     devs = mesh_devices(devices)
     rigs = {d: rig.to(d) for d in dict.fromkeys(devs)}
+    units = sharded_units(devs, pool)
 
     def step(mt, X, obs_shards, pt_obs, fixed_kf, fixed_pt, lam):
-        _, one = _sharded_problem(devs, rigs, obs_shards, pt_obs, fixed_kf, fixed_pt,
-                                  n_kf, n_pt, huber)
+        run = _sharded_problem(devs, rigs, obs_shards, pt_obs, fixed_kf, fixed_pt,
+                               n_kf, n_pt, huber, units)
         root = devs[0]
-        return one(mt.to(root), X.to(root), torch.as_tensor(lam, dtype=X.dtype, device=root))
+        lam = torch.as_tensor(lam, dtype=X.dtype, device=root)
+        done = torch.zeros((), dtype=torch.bool, device=root)
+        out = run(mt.to(root), X.to(root), None, (None, lam, done), True)
+        return out["next"] + (out["lm"][0],)
 
     return step
 
 
 def make_sharded_ba(devices: Sequence, rig: Rig, n_kf: int, n_pt: int, *,
-                    iters: int = 10, huber: float = opt.HUBER_GLOBAL):
+                    iters: int = 10, huber: float = opt.HUBER_GLOBAL, pool=None):
     """The full sharded LM bundle adjustment: ``iters`` masked steps of
     ``optimizer.bundle_adjustment``'s schedule (``optimizer.lm_accept``:
     lambda from 1e-4 in the problem's dtype, halved on accept, quadrupled
     on reject, frozen after an accepted step whose gain is under 1e-6),
-    so the device never waits for the host, with every step's
-    linearization data-parallel over ``devices``:
+    so the device never waits for the host, with every point's
+    linearization data-parallel over ``devices``: the shards linearize
+    each candidate once, and its blocks serve the next step when it is
+    taken. On cards each shard's linearization and the root's reduction,
+    accept / reject and solve are CUDA graphs of ``pool``
+    (``sharded_units``), the LM state a device tensor between them:
         ba(mt_min (N, 6), X (P, 3), obs_shards, pt_obs, fixed_kf, fixed_pt)
           -> (mt_min', X', final robust cost), on devices[0]."""
     devs = mesh_devices(devices)
     rigs = {d: rig.to(d) for d in dict.fromkeys(devs)}
     root = devs[0]
+    units = sharded_units(devs, pool)
 
     def ba(mt0, X0, obs_shards, pt_obs, fixed_kf, fixed_pt):
-        cost_of, step = _sharded_problem(devs, rigs, obs_shards, pt_obs, fixed_kf,
-                                         fixed_pt, n_kf, n_pt, huber)
+        run = _sharded_problem(devs, rigs, obs_shards, pt_obs, fixed_kf, fixed_pt,
+                               n_kf, n_pt, huber, units)
         mt, X = mt0.to(root), X0.to(root)
-        cost = cost_of(mt, X)
         lam = torch.full((), 1e-4, dtype=X.dtype, device=root)
         done = torch.zeros((), dtype=torch.bool, device=root)
-        for _ in range(iters):
-            mt_new, X_new, _ = step(mt, X, lam)
-            take, cost, lam, done = opt.lm_accept(cost, cost_of(mt_new, X_new), lam, done)
-            mt = torch.where(take, mt_new, mt)
-            X = torch.where(take, X_new, X)
-        return mt, X, cost
+        point, lm = None, (None, lam, done)
+        for i in range(iters + 1):
+            out = run(mt, X, point, lm, i < iters)
+            point, lm = out["point"], out["lm"]
+            if i < iters:
+                mt, X = out["next"]
+        return point[0], point[1], lm[0]
 
     return ba

@@ -32,7 +32,12 @@ key, replayed on every later call with that key.
   memory, so they replay one at a time; graphs that replay at the same
   time on two threads' streams (the tracker's steps and the async
   mapper's units) hold two pools. ``jit`` without a pool uses the
-  module's shared one.
+  module's shared one. ``Pool.jit(fn)`` is a pool's one wrapper of
+  ``fn``, for a unit whose callers are made and dropped (the sharded BA
+  of each ``run_global_ba``): its graphs outlive them.
+- ``compiled(pool)`` decorates a function as ``jax.jit`` decorates the
+  JAX package's: a call with tensors on a card (``graphed``) takes the
+  function's graph, any other call the plain function (``.fn``).
 - A ``torch.Generator`` argument (the RANSAC units' sampling streams) is
   a leaf of the key, by identity, and is registered with the graph
   (``CUDAGraph.register_generator_state``): the warm-up draws as the eager
@@ -75,6 +80,7 @@ collector).
 from __future__ import annotations
 
 import ctypes
+import functools
 import gc
 import threading
 import time
@@ -279,6 +285,7 @@ class Pool:
     def __init__(self, name: str):
         self.name = name
         self._state: dict = {}
+        self._jits: dict = {}
         _all_pools.add(self)
         # the side streams go back to own_stream's free list with the pool
         weakref.finalize(self, _release_side_streams, self._state).atexit = False
@@ -297,8 +304,49 @@ class Pool:
         with _lock:
             return [h for h, _ in self._state.values()]
 
+    def jit(self, fn: Callable) -> "jit":
+        """The pool's one ``jit`` of ``fn``, made at first use: its graphs
+        outlive the call that asked for them, so a later caller with the
+        same keys replays them."""
+        with _lock:
+            wrapper = self._jits.get(fn)
+            if wrapper is None:
+                wrapper = self._jits[fn] = jit(fn, self)
+            return wrapper
+
 
 SHARED = Pool("shared")
+
+
+def graphed(device: torch.device) -> bool:
+    """Whether a unit whose tensors lie on ``device`` runs as a CUDA graph
+    (on a card) or as its plain function (anywhere else)."""
+    return device.type == "cuda"
+
+
+def compiled(pool: Pool):
+    """A decorator, as ``jax.jit`` decorates the JAX package's functions:
+    the function's callers with tensors on a card get its CUDA graph in
+    ``pool`` (``jit``), callers with tensors elsewhere the plain function.
+    Inside another function's capture it runs plain, a part of that graph.
+    ``.fn`` is the plain function, ``.graph`` the ``jit``."""
+    def wrap(fn: Callable) -> "_Compiled":
+        return _Compiled(fn, pool)
+    return wrap
+
+
+class _Compiled:
+    def __init__(self, fn: Callable, pool: Pool):
+        self.fn = fn
+        self.graph = jit(fn, pool)
+        functools.update_wrapper(self, fn)
+
+    def __call__(self, *args, **kwargs):
+        leaves: list = []
+        _flatten((args, kwargs), leaves)
+        if leaves and graphed(leaves[0].device) and not capturing():
+            return self.graph(*args, **kwargs)
+        return self.fn(*args, **kwargs)
 
 
 def _side(device: torch.device, pool: Pool):

@@ -19,8 +19,9 @@ its last frame's state):
     frame's C * K rows against the power-of-two buckets they padded to
     before: within 1e-6, the same inliers and matches, GP3P drawing the
     same sets from the same generator state;
-  - ``Tracker.capture_ahead`` captures every unit a relocalization and
-    the frame after the bootstrap run, and leaves the generator's state
+  - ``Tracker.capture_ahead`` captures every unit a relocalization, the
+    frame after the bootstrap and the first fused frame run (the WORKING
+    step and the chunk scan's body too), and leaves the generator's state
     unchanged;
   - the relocalization transforms the frame once for SearchByBoW, not
     once per candidate keyframe, with the same triples;
@@ -237,8 +238,9 @@ def test_padding_to_the_frame_slots_matches_the_buckets():
 
 def test_capture_ahead_captures_the_keys_and_keeps_the_generator(monkeypatch):
     """The tracker's units made graphs (the stand-in), capture_ahead on the
-    run's last frame: every unit a relocalization and the frame after the
-    bootstrap call is captured, and ``gen`` is where it was."""
+    run's last frame: every unit a relocalization, the frame after the
+    bootstrap and the first fused frame call is captured, and ``gen`` is
+    where it was."""
     StandIn(monkeypatch)
     slam, _, _, frames = recorded()
     tr = slam.tracker
@@ -252,7 +254,8 @@ def test_capture_ahead_captures_the_keys_and_keeps_the_generator(monkeypatch):
     assert torch.equal(tr.gen.get_state(), before)
     assert set(tr.captured_ahead) == {"_extract_unit", "_window_search", "_pose_opt",
                                       "_gpnp", "_reloc_projection", "_local_map_step",
-                                      "bow_transform"}, tr.captured_ahead
+                                      "bow_transform", "_working_step",
+                                      "_scan_body"}, tr.captured_ahead
     assert tr.bow_transform.captures == 2 and tr._local_map_step.captures == 2
     n = sum(u.captures for u in tr.units().values())
     tr.capture_ahead(frames[FRAMES - 1])          # once a run

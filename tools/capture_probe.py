@@ -8,7 +8,11 @@ Probed, at the shapes the tracker gives them: ``torch.linalg.eigh``
 (1024 x 4x4 as Horn's alignment in GP3P, 3 x 9x9 as the 8-point refit),
 ``torch.linalg.svd`` (3x3, one and batched), ``torch.linalg.det`` (3x3),
 ``cholesky_ex`` with ``cholesky_solve`` and ``solve_ex`` (the Newton and
-DLT steps), a 0-d integer tensor as an index (``x[argmax]``), and
+DLT steps), ``solve_ex`` at the self-calibration's shapes (a batch of
+17x17 intrinsics systems, one per camera of three and of eight, one
+17x17 alone, and the dense 6(N + C) reduced system, 144x144 at 16
+keyframes and 8 cameras, in float32 and float64), a 0-d integer tensor as
+an index (``x[argmax]``), and
 ``torch.randint`` / ``torch.multinomial`` drawing from a CUDA
 ``torch.Generator`` other than the default, registered with the graph
 (``CUDAGraph.register_generator_state``) and not registered. For the
@@ -117,6 +121,21 @@ def main() -> None:
         "cholesky_ex + cholesky_solve 1024x3x3",
         lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky_ex(spd)[0]))
     res["solve_ex 12x12"] = probe("solve_ex 12x12", lambda: torch.linalg.solve_ex(A12, b12)[0])
+    for dt in (torch.float32, torch.float64):
+        tag = "f32" if dt == torch.float32 else "f64"
+        for C in (3, 8):
+            A = sym(C, 17, dt) + torch.eye(17, dtype=dt, device=dev)
+            b = rnd(C, 17, dt=dt)
+            res[f"solve_ex {C}x17x17 {tag}"] = probe(
+                f"solve_ex {C}x17x17 {tag}", lambda A=A, b=b: torch.linalg.solve_ex(A, b)[0])
+        A = sym(1, 17, dt)[0] + torch.eye(17, dtype=dt, device=dev)
+        b = rnd(17, dt=dt)
+        res[f"solve_ex 17x17 {tag}"] = probe(
+            f"solve_ex 17x17 {tag}", lambda A=A, b=b: torch.linalg.solve_ex(A, b)[0])
+        A = sym(1, 144, dt)[0] + torch.eye(144, dtype=dt, device=dev)
+        b = rnd(144, dt=dt)
+        res[f"solve_ex 144x144 {tag}"] = probe(
+            f"solve_ex 144x144 {tag}", lambda A=A, b=b: torch.linalg.solve_ex(A, b)[0])
     res["index by 0-d argmax"] = probe("index by 0-d argmax",
                                        lambda: rows[torch.argmax(scores)])
     res["index_select by argmax"] = probe(

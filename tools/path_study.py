@@ -21,7 +21,10 @@ the module functions it calls eagerly.
     python3 tools/path_study.py --trees _scratch/parent . . _scratch/parent
 
 Prints each run's medians beside the card's name and power limit; the
-last line is one JSON object, a list of runs.
+last line is one JSON object, a list of runs. Each run also gives the
+bootstrap frame and the first fused frame after it (index and ms), the
+ATE over the 40 frames, and what the capture-ahead captured and what
+captured after it.
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ def run(tree: str) -> dict:
     from multicol_slam_tpu_torch.models import tracking
     from multicol_slam_tpu_torch.models.system import MultiColSLAM
     from multicol_slam_tpu_torch.utils import config_io, graphs, synthetic
+    from multicol_slam_tpu_torch.utils.trajectory import ate_rmse
 
     if not torch.cuda.is_available():
         raise SystemExit("path_study: no CUDA device")
@@ -112,6 +116,15 @@ def run(tree: str) -> dict:
 
     for i in range(FRAMES):
         track(frames[i], i / 25.0)
+    # the bootstrap frame (the last init frame), the first fused frame
+    # after it, and the ATE over the tracked frames, as phase 6 takes it
+    paths = [p for p, _ in frame_ms]
+    boot = max(i for i, p in enumerate(paths) if p == "init")
+    fused = paths.index("fused", boot) if "fused" in paths[boot:] else None
+    poses = np.stack(tr.all_poses)
+    ate = ate_rmse(poses[:, :3, 3], gt[FRAMES - len(poses):FRAMES, :3, 3])
+    ahead = dict(captured=list(getattr(tr, "captured_ahead", [])),
+                 late=[list(c) for c in getattr(tr, "late_captures", [])])
     if tr.reloc_candidates_fn is not None:
         tr.reloc_candidates_fn = clock.wrap("reloc_candidates", tr.reloc_candidates_fn)
         tr.reloc_bow_match_fn = clock.wrap("bow_match_frame", tr.reloc_bow_match_fn)
@@ -135,7 +148,10 @@ def run(tree: str) -> dict:
         unit_ms={k: dict(median=med(v), n=len(v), first=round(v[0], 3),
                          all=[round(x, 3) for x in v]) for k, v in clock.ms.items()},
         extraction_ms=med(tr.timers.samples.get("feature_extraction", [])),
-        frames=frame_ms, kidnap=kidnap, kidnap_no_hooks=kidnap_window, forced=forced,
+        frames=frame_ms, bootstrap=[boot, frame_ms[boot][1]],
+        first_fused=None if fused is None else [fused, frame_ms[fused][1]],
+        ate_m=round(float(ate), 6), capture_ahead=ahead,
+        kidnap=kidnap, kidnap_no_hooks=kidnap_window, forced=forced,
         keyframes=int(slam.map.n_keyframes()),
         captures={k: (v["captures"], v["replays"]) for k, v in st["by_fn"].items()},
         ok=bool(np.all(forced)) and kidnap and kidnap_window)
@@ -165,7 +181,9 @@ def main(argv=None) -> None:
         print(f"{tree} (graphed units {r['graphed_units']}): frame ms by path "
               f"(median, n) {paths}; unit ms (median, first, n) {units}; extraction "
               f"median {r['extraction_ms']}; relocalized {r['kidnap']} {r['kidnap_no_hooks']} "
-              f"{r['forced']} ({name})")
+              f"{r['forced']}; the bootstrap frame (index, ms) {r['bootstrap']}, the first "
+              f"fused frame {r['first_fused']}, ATE {r['ate_m']} m; the capture-ahead "
+              f"{r['capture_ahead']} ({name})")
     print(name)
     print(json.dumps(runs))
 
