@@ -51,6 +51,7 @@ from ..ops import se3_np
 from ..ops.rig import Rig
 from ..ops.sim3 import Sim3, horn_alignment, sim3_exp, sim3_from_se3, sim3_log
 from ..utils import graphs
+from ..utils.timing import span
 from . import matcher
 from . import optimizer as opt
 from . import sim3_opt
@@ -224,17 +225,22 @@ class LoopCloser:
         return self.kf_words[kf], self.kf_nodes[kf]
 
     def insert_keyframe(self, kf: int) -> bool:
-        """Process one keyframe; returns True if a loop was closed."""
-        words, _ = self._bow_of_kf(kf)
-        bow = bow_vector(self.voc, words)
-        candidates = self._detect_loop(kf, bow)
-        self.db.add(kf, bow)
-        for cand in candidates:
-            if self._compute_sim3_and_correct(kf, cand):
-                self.last_loop_kf = kf
-                self.consistent_groups.clear()
-                return True
-        return False
+        """Process one keyframe; returns True if a loop was closed. The
+        span ``loop_closing.insert`` holds ``bow``, ``detect`` and, per
+        candidate, ``sim3`` and ``correct``."""
+        with span("loop_closing.insert", kf=kf):
+            with span("loop_closing.bow", kf=kf):
+                words, _ = self._bow_of_kf(kf)
+                bow = bow_vector(self.voc, words)
+            with span("loop_closing.detect", kf=kf):
+                candidates = self._detect_loop(kf, bow)
+                self.db.add(kf, bow)
+            for cand in candidates:
+                if self._compute_sim3_and_correct(kf, cand):
+                    self.last_loop_kf = kf
+                    self.consistent_groups.clear()
+                    return True
+            return False
 
     def _detect_loop(self, kf: int, bow) -> list[int]:
         """DetectLoop (cLoopClosing.cpp:113-245)."""
@@ -340,16 +346,18 @@ class LoopCloser:
 
     def _compute_sim3_and_correct(self, kf: int, cand: int) -> bool:
         """ComputeSim3 (cLoopClosing.cpp:247-427), then CorrectLoop."""
-        # pairs of one landmark on both sides carry no alignment
-        # information (tracking already re-associated them) and only vote
-        # for a no-op correction
-        pairs = [p for p in self._matched_point_pairs(kf, cand) if p[0] != p[1]]
-        if len(pairs) < MIN_BOW_MATCHES:
-            return False
-        S12 = self._compute_sim3(kf, cand, pairs)
+        with span("loop_closing.sim3", kf=kf):
+            # pairs of one landmark on both sides carry no alignment
+            # information (tracking already re-associated them) and only
+            # vote for a no-op correction
+            pairs = [p for p in self._matched_point_pairs(kf, cand) if p[0] != p[1]]
+            if len(pairs) < MIN_BOW_MATCHES:
+                return False
+            S12 = self._compute_sim3(kf, cand, pairs)
         if S12 is None:
             return False
-        self._correct_loop(kf, cand, S12)
+        with span("loop_closing.correct", kf=kf):
+            self._correct_loop(kf, cand, S12)
         if self.on_loop:
             self.on_loop(kf, cand)
         return True
@@ -656,7 +664,8 @@ class LoopCloser:
         m.kf_loop_edges[kf].add(loop_kf)
         m.kf_loop_edges[loop_kf].add(kf)
         if self.global_ba_iters > 0:
-            self._global_ba(loop_kf)
+            with span("loop_closing.global_ba", kf=kf):
+                self._global_ba(loop_kf)
 
     def _global_ba(self, fixed_kf: int):
         """Post-loop global BA through ``global_ba.run_global_ba``, the

@@ -33,6 +33,7 @@ import torch
 from ..ops.camera import make_extraction_masks
 from ..ops.pyramid import level_sizes
 from ..utils import config_io, graphs
+from ..utils.timing import span
 from ..utils.trajectory import save_tum
 from . import matcher
 from . import optimizer as opt
@@ -324,13 +325,14 @@ class MultiColSLAM:
         self._voc_corpus.append(self._kf_descriptors(kf))
         if len(self._voc_corpus) < self.VOCAB_RETRAIN_KFS:
             return
-        doc_ids = np.concatenate([np.full(len(d), i, np.int32)
-                                  for i, d in enumerate(self._voc_corpus)])
-        voc = vocab_mod.train_vocabulary(np.concatenate(self._voc_corpus, 0), k=10,
-                                         levels=4, doc_ids=doc_ids).to(self.device)
-        # the tracker reads the vocabulary on its own stream
-        self._stream_sync()
-        self.loop_closer.set_vocabulary(voc)
+        with span("loop_closing.vocabulary", kf=kf):
+            doc_ids = np.concatenate([np.full(len(d), i, np.int32)
+                                      for i, d in enumerate(self._voc_corpus)])
+            voc = vocab_mod.train_vocabulary(np.concatenate(self._voc_corpus, 0), k=10,
+                                             levels=4, doc_ids=doc_ids).to(self.device)
+            # the tracker reads the vocabulary on its own stream
+            self._stream_sync()
+            self.loop_closer.set_vocabulary(voc)
         self._voc_retrained = True
         self._voc_corpus.clear()
 
@@ -428,7 +430,8 @@ class MultiColSLAM:
         returns the body pose (4, 4) or None while not tracking. Raises a
         failure of the mapper thread."""
         self._raise_mapper_error()
-        M = self.tracker.track(images, timestamp)
+        with span("system.track", frame=self.tracker.frame_id + 1):
+            M = self.tracker.track(images, timestamp)
         if self.keep_last_frame:
             # the frame publisher's snapshot (cMultiFramePublisher::Update):
             # a viewer draws from it, never from the tracker's live state
@@ -454,19 +457,20 @@ class MultiColSLAM:
         self._raise_mapper_error()
         out: list = []
         i = 0
-        while i < n:
-            if n - i >= chunk:
-                r = self.tracker.track_chunk(images[i:i + chunk],
-                                             list(timestamps[i:i + chunk]))
-                if r is not None:
-                    acc, poses = r
-                    out.extend(poses)
-                    i += acc
-                    if acc == chunk:
-                        continue
-                    # the frame that broke the chunk runs per frame
-            out.append(self.track(images[i], timestamps[i]))
-            i += 1
+        with span("system.track_batch", frame=self.tracker.frame_id + 1, count=n):
+            while i < n:
+                if n - i >= chunk:
+                    r = self.tracker.track_chunk(images[i:i + chunk],
+                                                 list(timestamps[i:i + chunk]))
+                    if r is not None:
+                        acc, poses = r
+                        out.extend(poses)
+                        i += acc
+                        if acc == chunk:
+                            continue
+                        # the frame that broke the chunk runs per frame
+                out.append(self.track(images[i], timestamps[i]))
+                i += 1
         return out
 
     def attach_viewer(self, out_dir: str = ".", period_s: float = 1.0):

@@ -51,7 +51,7 @@ from ..ops.camera import world_to_img
 from ..ops.geometry import cayley2hom, hom2cayley, inv_se3
 from ..ops.rig import Rig, mt_mc
 from ..utils import graphs
-from ..utils.timing import StageTimers
+from ..utils.timing import StageTimers, span
 from . import initializer, matcher
 from . import optimizer as opt
 from .extractor import Features
@@ -513,10 +513,7 @@ class Tracker:
         # eval vectors (cTracking.h:114-121)
         self.all_poses: list[np.ndarray] = []
         self.timestamps: list[float] = []
-        self.inlier_ratios: list[float] = []
         self.n_tracked: list[int] = []
-        # pose-LM iterations per optimization (observability)
-        self.lm_iters: list[int] = []
         # device stages issued per frame
         self.dispatches_per_frame: list[int] = []
         self._dispatch_n = 0
@@ -681,7 +678,7 @@ class Tracker:
                             ok = self._track_previous_frame()
             else:
                 self.frame_path.append("reloc")
-                with self.timers.time("initial_pose_estimation"):
+                with self.timers.time("initial_pose_estimation"), span("tracker.relocalize"):
                     ok = self._relocalize()
                 if ok and forced == self.force_reloc:
                     self.force_reloc = False
@@ -927,15 +924,13 @@ class Tracker:
                 self._to_dev(has), self.cur_feats, self.last_feats,
                 self._to_dev(self.cur_pt >= 0), self.params,
                 th=self.cfg.motion_th)
-        match, mt, inlier, n_in, n_matches, n_it = fetch(*out)
+        match, mt, inlier, n_in, n_matches, _ = fetch(*out)
         n_matches = int(n_matches)
-        self.lm_iters.append(int(n_it))
         if n_matches < 20:
             return False
         self._apply_motion_matches(match, inlier)
         self.cur_mt = mt
         n_in = int(n_in)
-        self.inlier_ratios.append(n_in / max(n_matches, 1))
         return n_in >= self.cfg.min_inliers_track
 
     def _track_working_fused(self, motion_in, lm_in, images):
@@ -964,21 +959,18 @@ class Tracker:
             th_local=self.cfg.local_map_th, n_levels=self.cfg.n_levels,
             scale_factor=self.cfg.scale_factor)
         self.cur_feats = out[0]
-        (match1, mt1, inl1, n_in1, n_m1, it1,
-         fr_ok, match2, mt2, inl_slot, inl_new, n_in2, it2) = fetch(*out[1:])
+        (match1, mt1, inl1, n_in1, n_m1, _,
+         fr_ok, match2, mt2, inl_slot, inl_new, n_in2, _) = fetch(*out[1:])
         n_m1 = int(n_m1)
-        self.lm_iters.append(int(it1))
         if n_m1 < 20:
             return None
         self._apply_motion_matches(match1, inl1)
         self.cur_mt = mt1
         n_in1 = int(n_in1)
-        self.inlier_ratios.append(n_in1 / max(n_m1, 1))
         if n_in1 < self.cfg.min_inliers_track:
             return None
 
         # local-map bookkeeping, as _track_local_map's after its step
-        self.lm_iters.append(int(it2))
         m = self.map
         vis = fr_ok[:, :P].any(0)
         m.pt_visible[local_pts[vis]] += 1
@@ -987,7 +979,6 @@ class Tracker:
         self.cur_outlier |= slot_has & ~inl_slot
         self.cur_mt = mt2
         n_in2 = int(n_in2)
-        self.inlier_ratios.append(n_in2 / max(int(slot_has.sum()) + n_new, 1))
         # resolve merges and drop dead landmarks before the found counters
         # and the keyframe decision
         self.cur_pt = m.resolve_points(self.cur_pt)
@@ -1117,8 +1108,6 @@ class Tracker:
                     or int(host["n_in2"][i]) < self.cfg.min_inliers_local):
                 break       # the per-frame path recovers from here
             self.frame_id += 1
-            self.lm_iters.append(int(host["it1"][i]))
-            self.lm_iters.append(int(host["it2"][i]))
             m.pt_visible[local_pts[host["vis"][i][:P]]] += 1
             hs_i = host["has"][i]
             cur_pt = np.full((C, K), -1, np.int32)
@@ -1131,8 +1120,6 @@ class Tracker:
             tracked = cur_pt[cur_pt >= 0]
             m.pt_found[tracked] += 1
             self.n_tracked.append(len(tracked))
-            self.inlier_ratios.append(int(host["n_in1"][i]) / max(int(host["n_m1"][i]), 1))
-            self.inlier_ratios.append(int(host["n_in2"][i]) / max(int(hs_i.sum()), 1))
             self.cur_pt = cur_pt
             self.cur_outlier = np.zeros((C, K), bool)
             self.cur_mt = mt_arr[i].astype(np.float64)
@@ -1202,15 +1189,13 @@ class Tracker:
         if n < min_inliers:
             return False
         self._dispatch_n += 1
-        mt, inlier, n_in, n_it = fetch(*self._pose_opt(
+        mt, inlier, n_in, _ = fetch(*self._pose_opt(
             *self._pose_lm_inputs(mt_init, cam_idx, slot_idx, pt_ids)))
         n_in = int(n_in)
-        self.lm_iters.append(int(n_it))
         inlier = inlier[:n]
         # mark outliers on the frame (cOptimizer.cpp:414-438)
         self.cur_outlier[cam_idx[~inlier], slot_idx[~inlier]] = True
         self.cur_mt = mt
-        self.inlier_ratios.append(n_in / max(n, 1))
         return n_in >= min_inliers
 
     def _pose_lm_inputs(self, mt_init, cam_idx, slot_idx, pt_ids):
@@ -1277,29 +1262,30 @@ class Tracker:
         normals, distance range, distinctive descriptors, the candidate
         mask), selected by ``_local_map_ids``. Returns (local_pts, cap,
         dict of device tensors) or None when there is no local map yet."""
-        local_kfs, local_pts = self._local_map_ids(src_pt)
-        if len(local_pts) == 0:
-            return None
-        m = self.map
-        c = self._snap_cache
-        if (c is not None and not self.map_dirty
-                and np.array_equal(c[0], local_pts)):
-            return c
-        P = len(local_pts)
-        cap = bucket(P, 256)
-        pad = lambda a, fill=0: np.concatenate(
-            [a, np.full((cap - P,) + a.shape[1:], fill, a.dtype)], 0)
-        arrs = dict(X=pad(m.pt_pos[local_pts]),
-                    normal=pad(m.pt_normal[local_pts]),
-                    mind=pad(m.pt_min_dist[local_pts]),
-                    maxd=pad(m.pt_max_dist[local_pts], 1.0),
-                    desc=pad(m.pt_desc[local_pts]),
-                    dmask=pad(m.pt_desc_mask[local_pts]),
-                    cand_base=np.arange(cap) < P)
-        arrs = {k: self._to_dev(v) for k, v in arrs.items()}
-        self._snap_cache = (local_pts, cap, arrs)
-        self.map_dirty = False
-        return self._snap_cache
+        with span("tracker.snapshot"):
+            local_kfs, local_pts = self._local_map_ids(src_pt)
+            if len(local_pts) == 0:
+                return None
+            m = self.map
+            c = self._snap_cache
+            if (c is not None and not self.map_dirty
+                    and np.array_equal(c[0], local_pts)):
+                return c
+            P = len(local_pts)
+            cap = bucket(P, 256)
+            pad = lambda a, fill=0: np.concatenate(
+                [a, np.full((cap - P,) + a.shape[1:], fill, a.dtype)], 0)
+            arrs = dict(X=pad(m.pt_pos[local_pts]),
+                        normal=pad(m.pt_normal[local_pts]),
+                        mind=pad(m.pt_min_dist[local_pts]),
+                        maxd=pad(m.pt_max_dist[local_pts], 1.0),
+                        desc=pad(m.pt_desc[local_pts]),
+                        dmask=pad(m.pt_desc_mask[local_pts]),
+                        cand_base=np.arange(cap) < P)
+            arrs = {k: self._to_dev(v) for k, v in arrs.items()}
+            self._snap_cache = (local_pts, cap, arrs)
+            self.map_dirty = False
+            return self._snap_cache
 
     def _track_local_map(self, th: float | None = None,
                          update_counters: bool = True) -> bool:
@@ -1345,8 +1331,7 @@ class Tracker:
             self._to_dev(slot_X), slot_has_t, self.params,
             th=self.cfg.local_map_th if th is None else th,
             n_levels=self.cfg.n_levels, scale_factor=self.cfg.scale_factor)
-        ok, match, mt, inl_slot, inl_new, n_in, n_it = fetch(*out)
-        self.lm_iters.append(int(n_it))
+        ok, match, mt, inl_slot, inl_new, n_in, _ = fetch(*out)
 
         # visibility counters (isInFrustum -> IncreaseVisible)
         if update_counters:
@@ -1357,7 +1342,6 @@ class Tracker:
         self.cur_outlier |= slot_has & ~inl_slot
         self.cur_mt = mt
         n_in = int(n_in)
-        self.inlier_ratios.append(n_in / max(int(slot_has.sum()) + n_new, 1))
         okpose = n_in >= self.cfg.min_inliers_local
         if update_counters:
             # found counters for culling (TrackLocalMap IncreaseFound)
@@ -1412,16 +1396,17 @@ class Tracker:
         """cTracking::CreateNewKeyFrame (:940-951)."""
         m = self.map
         kf = m.alloc_keyframe(self.cur_mt, self.cur_feats, self.frame_id)
-        C, K = self.cur_pt.shape
-        for c in range(C):
-            for s in np.nonzero((self.cur_pt[c] >= 0) & ~self.cur_outlier[c])[0]:
-                pid = int(self.cur_pt[c, s])
-                if m.pt_valid[pid]:
-                    m.add_observation(pid, kf, c, int(s))
-        m.update_spanning_tree(kf)
-        self.last_kf_id = kf
-        if self.on_new_keyframe:
-            self.on_new_keyframe(kf)
+        with span("tracker.new_keyframe", kf=kf):
+            C, K = self.cur_pt.shape
+            for c in range(C):
+                for s in np.nonzero((self.cur_pt[c] >= 0) & ~self.cur_outlier[c])[0]:
+                    pid = int(self.cur_pt[c, s])
+                    if m.pt_valid[pid]:
+                        m.add_observation(pid, kf, c, int(s))
+            m.update_spanning_tree(kf)
+            self.last_kf_id = kf
+            if self.on_new_keyframe:
+                self.on_new_keyframe(kf)
 
     # ------------------------------------------------------------------
     # relocalization (cTracking::Relocalisation :1125-1312)
@@ -1580,8 +1565,6 @@ class Tracker:
         self.last_outlier = None
         self.all_poses.clear()
         self.timestamps.clear()
-        self.inlier_ratios.clear()
         self.n_tracked.clear()
-        self.lm_iters.clear()
         self.dispatches_per_frame.clear()
         self.timers.clear()

@@ -61,7 +61,8 @@ key, replayed on every later call with that key.
   pools' bytes, in all and per graphed function (with the generators
   each function's graphs registered). ``thread_seconds()``:
   the calling thread's seconds in warm-ups, waiting for another thread's
-  capture, and capturing.
+  capture, and capturing. Under ``torch.profiler`` a first call's warm-up
+  and capture are the span ``graphs.capture`` (``utils/timing.py``).
 
 Captures use ``capture_error_mode="thread_local"``: one thread may
 allocate, launch and synchronize on its own stream while another
@@ -88,6 +89,8 @@ import weakref
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from .timing import span
 
 _local = threading.local()
 _lock = threading.Lock()
@@ -442,7 +445,8 @@ class jit:
         key = _key(spec, leaves)
         entry = self._graphs.get(key)
         if entry is None:
-            return self._first_call(key, spec, leaves)
+            with span("graphs.capture", fn=self.name):
+                return self._first_call(key, spec, leaves)
         for buf, x in zip(entry.inputs, leaves):
             buf.copy_(x)
         self.replays += 1
